@@ -3,28 +3,49 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
     python3 chip_smoke.py
 
-It builds the CUDA kernel from ``csr_tpu_torch/csrc`` (into
-``csr_tpu_torch/_build/``) and runs five phases; any failure raises and
-the script exits nonzero.  It needs a CUDA device and never falls back to
-the CPU.
+It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
+``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
+runs eleven phases; any failure raises and the script exits nonzero.  It
+needs a CUDA device and never falls back to the CPU.
 
-1. Environment: the card's name and power limit, the CUDA version, the
-   kernel's build time.
-2. The kernel against its plain PyTorch version (``spmv_reference``) on
-   the card, on small seeded layouts for window 128/256 x pair 1/2/4.
-3. Main path at the flagship: ``CSR.mult_vec`` and ``CSR.mult_vec_t`` of
-   the 32768^2 matrix with 327 entries per row (10.7M), against scipy.
+1. Environment: the card's name and power limit, the CUDA version, each
+   kernel's build time and ptxas report.
+2. The SpMV kernel against its plain PyTorch version (``spmv_reference``)
+   on the card, on small seeded layouts for window 128/256 x pair 1/2/4.
+3. SpMV main path at the flagship: ``CSR.mult_vec`` and ``CSR.mult_vec_t``
+   of the 32768^2 matrix with 327 entries per row (10.7M), against scipy.
 4. The same at the MovieLens-25M shape: 162,541 users x 59,047 items,
    25,000,095 ratings, made from a seed.
-5. The kernel against its plain version at the main path's four layouts;
-   kernel and plain-version times at the flagship over chained
+5. The SpMV kernel against its plain version at the main path's four
+   layouts; kernel and plain-version times at the flagship over chained
    iterations timed with CUDA events; a ``torch.profiler`` view of 20
    chained iterations; each main-path layout's times alone.
+6. The SpMM kernel against its plain version (``spmm_reference``) on the
+   card: the six (window, pair) variants at n = 1, 50 and 300.
+7. SpMM main path at the flagship: ``CSR.mult_dense`` with a seeded B of
+   32768 x 256, against scipy on a column slice.
+8. The same at the MovieLens-25M shape with B of 59,047 x 50 (R Q of an
+   ALS half-step at lenskit BiasedMF's 50 features).
+9. ``CSR.multiply`` and ``multiply(transpose=True)`` of two seeded 8192^2
+   matrices with 20 entries per row: B densifies, A runs the SpMM kernel
+   on an 8192-wide operand; against scipy's product.
+10. The SpMM kernel against its plain version at the main path's shapes;
+    kernel and plain-version times at the flagship over chained
+    iterations (CUDA events) and the kernel's device time by
+    ``torch.profiler``.
+11. The densify threshold: at 8192^2 with B 50, 256 and 8192 wide, the
+    SpMM kernel against the densified f32 ``torch.matmul`` (TF32 off),
+    alone and as whole ``CSR.mult_dense`` calls, at densities 1e-3 ..
+    3e-1; the route the port picks must cost at most 1.5 times the faster
+    one at every point.
 
-Every comparison uses the bound of ``tests/util.py:assert_spmv_close``
+SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
-window, plus 1e-6), computed here on sparse matrices; "share" is the
-largest error as a fraction of that bound, and must stay <= 1.
+window, plus 1e-6), computed here on sparse matrices; SpMM ones that of
+``tests/test_mult_dense.py`` (rtol 5e-4, atol 1e-4 times the largest
+|result|), and the products ``tests/util.py:tols`` (rtol 5e-4, atol
+5e-3).  "share" is the largest error as a fraction of the bound, and
+must stay <= 1.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -34,6 +55,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import scipy.sparse as sps
@@ -47,6 +69,16 @@ KERNEL = {
     "source": "csr_tpu_torch/csrc/spmv_microblock.cu",
     "replaces": "csr_tpu/ops/spmv.py:79",
 }
+SPMM_KERNEL = {
+    "name": "spmm_microblock",
+    "route": "cuda",
+    "source": "csr_tpu_torch/csrc/spmm_microblock.cu",
+    "replaces": "csr_tpu/ops/spmm.py:66",
+}
+# tests/test_mult_dense.py: rtol 5e-4, atol 1e-4 x max(1, max |ref|)
+SPMM_RTOL, SPMM_ATOL = 5e-4, 1e-4
+# tests/util.py:tols for f32 products
+PROD_RTOL, PROD_ATOL = 5e-4, 5e-3
 
 
 def spmv_share(y, ref, a, x) -> float:
@@ -70,6 +102,56 @@ def spmv_share(y, ref, a, x) -> float:
     return share
 
 
+def spmm_share(c, ref, rtol=SPMM_RTOL, atol=SPMM_ATOL) -> float:
+    """Largest |c - ref| as a share of tests/test_mult_dense.py's bound
+    (rtol * |ref| + atol * max(1, max |ref|)); raises if it exceeds the
+    bound or c is not finite."""
+    if isinstance(c, torch.Tensor):
+        c = c.detach().cpu().numpy()
+    c = np.asarray(c, np.float64)
+    ref = np.asarray(ref, np.float64)
+    assert c.shape == ref.shape, (c.shape, ref.shape)
+    assert np.all(np.isfinite(c)), "non-finite SpMM output"
+    tol = rtol * np.abs(ref) + atol * max(1.0, np.abs(ref).max(initial=0))
+    share = float(np.max(np.abs(c - ref) / tol)) if c.size else 0.0
+    assert share <= 1.0, f"SpMM outside the bound: share {share:.3g}"
+    return share
+
+
+def product_share(got, ref) -> float:
+    """Largest entry of |got - ref| as a share of tests/util.py:tols' f32
+    bound (PROD_RTOL * |ref| + PROD_ATOL), over both sparse patterns;
+    raises if it exceeds the bound."""
+    got = sps.csr_matrix(got, dtype=np.float64)
+    ref = sps.csr_matrix(ref, dtype=np.float64)
+    assert got.shape == ref.shape, (got.shape, ref.shape)
+    assert np.all(np.isfinite(got.data)), "non-finite product"
+    diff = abs(got - ref).tocoo()
+    if diff.nnz == 0:
+        return 0.0
+    tol = PROD_RTOL * np.abs(np.asarray(ref[diff.row, diff.col]).ravel()) + PROD_ATOL
+    share = float(np.max(diff.data / tol))
+    assert share <= 1.0, f"product outside the bound: share {share:.3g}"
+    return share
+
+
+def per_call(fn, iters=50):
+    """Milliseconds per call of ``fn`` between two CUDA events (after one
+    warm-up call), and the host's milliseconds to enqueue a call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    end.synchronize()
+    return start.elapsed_time(end) / iters, host
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -87,12 +169,28 @@ def phase_environment():
     print(f"[1] card: {card}")
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    _cuda.library()
-    print(f"[1] kernel built and loaded in {_cuda.build_seconds:.2f} s")
-    for line in _cuda.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[1] ptxas: {line.strip()}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(_cuda.ENTRIES)) as pool:  # one nvcc each
+        list(pool.map(_cuda.library, _cuda.ENTRIES))
+    print(f"[1] kernels built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name in _cuda.ENTRIES:
+        print(f"[1] {name}: {_cuda.build_seconds[name]:.2f} s")
+        for line in _cuda.build_log[name].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[1]   ptxas: {line.strip()}")
     return card
+
+
+def small_matrix(seed):
+    """A 1000 x 3000 f32 matrix of density 0.02 with one (rb, cb) group of
+    228 entries that spans two micro-rows, and the generator that drew it
+    (for the operands)."""
+    rng = np.random.default_rng(seed)
+    a = sps.random(1000, 3000, 0.02, format="lil", random_state=rng,
+                   dtype=np.float32)
+    a[3, :128] = rng.standard_normal(128)
+    a[4, :100] = rng.standard_normal(100)
+    return a.tocsr(), rng
 
 
 def phase_kernel_vs_plain():
@@ -101,13 +199,8 @@ def phase_kernel_vs_plain():
     spans two micro-rows."""
     from csr_tpu_torch.ops import microblock, spmv as spmv_op
 
-    rng = np.random.default_rng(7)
-    nrows, ncols = 1000, 3000
-    a = sps.random(nrows, ncols, 0.02, format="lil", random_state=rng,
-                   dtype=np.float32)
-    a[3, :128] = rng.standard_normal(128)
-    a[4, :100] = rng.standard_normal(100)
-    a = a.tocsr()
+    a, rng = small_matrix(7)
+    nrows, ncols = a.shape
     x = rng.standard_normal(ncols).astype(np.float32)
     xd = torch.from_numpy(x).cuda()
     worst = 0.0
@@ -207,13 +300,17 @@ def phase_main_path(tag, nrows, ncols, rowptr, cols, vals, x, xt):
     return (layout, x, a, csr.mult_vec), (layout_t, xt, at, csr.mult_vec_t)
 
 
-def phase_timing(layout, x, card):
-    """Kernel and plain version at the flagship: chained iterations,
-    each output max-normalised into the next input (as bench.py)."""
-    from csr_tpu_torch.ops import spmv as spmv_op
-    from csr_tpu_torch.utils.profiling import peak_gbps, timed_chained
+def chained_times(tag, layout, kernel, plain, x0, iters, plain_iters,
+                  plain_reps, profile_iters):
+    """Seconds per chained iteration of ``kernel`` and of its ``plain``
+    version on ``layout``, each output max-normalised into the next input
+    (as bench.py): plain, kernel, kernel, plain on the same card, the best
+    of each.  Then the device time by kernel name over ``profile_iters``
+    chained kernel iterations (torch.profiler), and the device's busy
+    share of that window."""
+    from torch.profiler import ProfilerActivity, profile
 
-    x0 = torch.from_numpy(x).cuda()
+    from csr_tpu_torch.utils.profiling import timed_chained
 
     def chained(fn):
         def step(v):
@@ -221,38 +318,47 @@ def phase_timing(layout, x, card):
             return y / y.abs().max().clamp_min(1e-30)
         return step
 
-    kern, plain = chained(spmv_op.spmv), chained(spmv_op.spmv_reference)
-    # plain, kernel, kernel, plain on the same card; best of each
-    t_plain = timed_chained(plain, x0, iters=100)
-    t_kern = timed_chained(kern, x0, iters=300)
-    t_kern = min(t_kern, timed_chained(kern, x0, iters=300))
-    t_plain = min(t_plain, timed_chained(plain, x0, iters=100))
-    peak = peak_gbps(torch.cuda.get_device_name(0))
-    for name, t in (("kernel", t_kern), ("plain", t_plain)):
-        gbps = layout.nbytes / t / 1e9
-        frac = f"{gbps / peak:.4f} of {peak} GB/s" if peak else "peak unknown"
-        print(f"[5] {name}: {t * 1e3:.5f} ms/iter, {gbps:.2f} GB/s streamed "
-              f"({frac}), {layout.nnz / t / 1e9:.3f} Gnnz/s; card {card}")
-
-    # where a chained iteration's time goes: device time by kernel name
-    # over 20 iterations, and the device's busy share of that window
-    from torch.profiler import ProfilerActivity, profile
+    kern, slow = chained(kernel), chained(plain)
+    t_plain = timed_chained(slow, x0, iters=plain_iters, reps=plain_reps)
+    t_kern = timed_chained(kern, x0, iters=iters)
+    t_kern = min(t_kern, timed_chained(kern, x0, iters=iters))
+    t_plain = min(t_plain, timed_chained(slow, x0, iters=plain_iters,
+                                         reps=plain_reps))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         v = x0
-        for _ in range(20):
+        for _ in range(profile_iters):
             v = kern(v)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
                  key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in dev) / 1e6
-    print(f"[5] profile of 20 chained kernel iterations: wall {wall * 1e3:.4f} "
-          f"ms, device busy {busy * 1e3:.4f} ms ({busy / wall:.3f})")
+    print(f"[{tag}] profile of {profile_iters} chained kernel iterations: wall "
+          f"{wall * 1e3:.4f} ms, device busy {busy * 1e3:.4f} ms "
+          f"({busy / wall:.3f})")
     for e in dev[:5]:
-        print(f"[5]   {e.self_device_time_total / e.count:9.3f} us x{e.count} "
-              f"{e.key[:70]}")
+        print(f"[{tag}]   {e.self_device_time_total / e.count:9.3f} us "
+              f"x{e.count} {e.key[:70]}")
+    return t_kern, t_plain
+
+
+def phase_timing(layout, x, card):
+    """SpMV kernel and plain version at the flagship (chained_times)."""
+    from csr_tpu_torch.ops import spmv as spmv_op
+    from csr_tpu_torch.utils.profiling import peak_gbps
+
+    t_kern, t_plain = chained_times(
+        "5", layout, spmv_op.spmv, spmv_op.spmv_reference,
+        torch.from_numpy(x).cuda(), iters=300, plain_iters=100, plain_reps=3,
+        profile_iters=20)
+    peak = peak_gbps(torch.cuda.get_device_name(0))
+    for name, t in (("kernel", t_kern), ("plain", t_plain)):
+        gbps = layout.nbytes / t / 1e9
+        frac = f"{gbps / peak:.4f} of {peak} GB/s" if peak else "peak unknown"
+        print(f"[5] {name}: {t * 1e3:.5f} ms/iter, {gbps:.2f} GB/s streamed "
+              f"({frac}), {layout.nnz / t / 1e9:.3f} Gnnz/s; card {card}")
     return t_kern * 1e3, t_plain * 1e3
 
 
@@ -264,20 +370,6 @@ def phase_alone(main_layouts, card):
     time, the host, not the card, sets the pace."""
     from csr_tpu_torch.kernels import use_kernel
     from csr_tpu_torch.ops import spmv as spmv_op
-
-    def per_call(fn, iters=50):
-        fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        host = (time.perf_counter() - t0) / iters * 1e3
-        end.synchronize()
-        return start.elapsed_time(end) / iters, host
 
     for layout, x, _, call in main_layouts:
         xd = torch.from_numpy(x).cuda()
@@ -293,11 +385,207 @@ def phase_alone(main_layouts, card):
               f"{call_ms:.5f} ms (host enqueue {call_host:.5f} ms); card {card}")
 
 
+def phase_spmm_kernel_vs_plain():
+    """SpMM kernel against spmm_reference on small seeded layouts: the six
+    (window, pair) variants at n = 1, 50 and 300, with one (rb, cb) group
+    of 228 entries that spans two micro-rows."""
+    from csr_tpu_torch.ops import microblock, spmm as spmm_op
+
+    a, rng = small_matrix(8)
+    nrows, ncols = a.shape
+    a64 = a.astype(np.float64)
+    worst = 0.0
+    for window in (128, 256):
+        for pair in (1, 2, 4):
+            layout = microblock.build_microblocks_host(
+                nrows, ncols, a.indptr, a.indices, a.data,
+                window=window, pair=pair, device="cuda",
+            )
+            shares = []
+            for n in (1, 50, 300):
+                b = rng.standard_normal((ncols, n)).astype(np.float32)
+                bd = torch.from_numpy(b).cuda()
+                c = spmm_op.spmm(layout, bd)
+                c_ref = spmm_op.spmm_reference(layout, bd)
+                torch.cuda.synchronize()
+                worst = max(worst, float((c - c_ref).abs().max()))
+                shares.append(spmm_share(c, c_ref.cpu().numpy()))
+                spmm_share(c, a64 @ b)
+            print(f"[6] window {window} pair {pair}: {layout.n_microrows} "
+                  f"micro-rows; n = 1, 50, 300: share of bound vs plain "
+                  + ", ".join(f"{s:.3g}" for s in shares))
+    print(f"[6] kernel vs plain max abs err {worst:.3g}")
+    return worst
+
+
+def phase_mult_dense(tag, csr, a, b):
+    """``CSR.mult_dense`` on the cuda kernel (the matrix's layout is cached
+    from the SpMV phase), against scipy on a 16-column slice of B."""
+    from csr_tpu_torch.kernels import use_kernel
+
+    bd = torch.from_numpy(b).cuda()
+    with use_kernel("cuda"):
+        t0 = time.perf_counter()
+        c = csr.mult_dense(bd)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    assert c.shape == (csr.nrows, b.shape[1]) and c.dtype == torch.float32
+    assert c.device.type == "cuda"
+    ref = a.astype(np.float64) @ b[:, :16].astype(np.float64)
+    share = spmm_share(c[:, :16], ref)
+    print(f"[{tag}] mult_dense: {csr.nrows}x{csr.ncols} nnz {csr.nnz} times "
+          f"B {b.shape[0]}x{b.shape[1]}: first call {secs * 1e3:.3f} ms "
+          f"(layout cached); share of bound vs scipy (16 columns) {share:.3g}")
+    return bd
+
+
+def sparse_square(n, per_row, seed):
+    """Host CSR arrays of an n x n f32 matrix with ``per_row`` uniformly
+    drawn columns in each row (repeats kept), from a seed."""
+    rng = np.random.default_rng(seed)
+    rowptr = np.arange(n + 1, dtype=np.int64) * per_row
+    cols = rng.integers(0, n, n * per_row).astype(np.int32)
+    vals = rng.standard_normal(n * per_row).astype(np.float32)
+    return rowptr, cols, vals
+
+
+def phase_multiply():
+    """``CSR.multiply`` and ``multiply(transpose=True)`` of two seeded
+    8192^2 matrices with 20 entries per row (density 2.4e-3): B densifies
+    within the dense budget, A is too sparse to, so the sparse leg runs the
+    SpMM kernel on an 8192-wide operand.  Against scipy, zeros filtered."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
+
+    n, per_row = 8192, 20
+    mats = []
+    for seed in (81, 82):
+        rp, ci, v = sparse_square(n, per_row, seed)
+        mats.append((CSR(n, n, len(ci), rp, ci, v, device="cuda"),
+                     sps.csr_matrix((v, ci, rp), shape=(n, n))))
+    (A, a), (B, b) = mats
+    assert not cuda_k._dense_affordable(A, n), "A densifies: lower its density"
+    for transpose in (False, True):
+        with use_kernel("cuda"):
+            t0 = time.perf_counter()
+            p = A.multiply(B, transpose=transpose)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        ref = a @ (b.T if transpose else b)
+        ref.sum_duplicates()
+        ref.eliminate_zeros()
+        assert p.device.type == "cuda" and (p.nrows, p.ncols) == ref.shape
+        got = p.to_scipy()
+        assert np.all(got.data != 0), "stored zeros"
+        share = product_share(got, ref)
+        print(f"[9] multiply(transpose={transpose}): {n}x{n} with {A.nnz} and "
+              f"{B.nnz} entries -> {p.nnz} (scipy {ref.nnz}); first call "
+              f"{secs:.3f} s (packing and densify included); share of bound "
+              f"vs scipy {share:.3g}")
+    return A, b
+
+
+def phase_spmm_timing(layout, b0, card):
+    """SpMM kernel and plain version at the flagship (chained_times; C has
+    B's shape, so C feeds the next iteration as B)."""
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    t_kern, t_plain = chained_times(
+        "10", layout, spmm_op.spmm, spmm_op.spmm_reference, b0, iters=20,
+        plain_iters=5, plain_reps=2, profile_iters=5)
+    cells = layout.nnz * b0.shape[1]
+    for name, t in (("kernel", t_kern), ("plain", t_plain)):
+        print(f"[10] {name}: {t * 1e3:.5f} ms/iter, {cells / t / 1e9:.3f} G "
+              f"entry-columns/s ({cells * 4 / t / 1e9:.1f} GB/s of B rows "
+              f"read); card {card}")
+    return t_kern * 1e3, t_plain * 1e3
+
+
+def crossover(rows):
+    """The density at which whole dense-route calls start to beat
+    kernel-route ones, log-interpolated between the measured densities
+    ``rows = [(density, kernel_ms, dense_ms), ...]``; None if they never
+    do, the first density if they always do."""
+    sign = [np.log(dense / kern) for _, kern, dense in rows]
+    if sign[0] <= 0:
+        return rows[0][0]
+    for (d0, _, _), (d1, _, _), r0, r1 in zip(rows, rows[1:], sign, sign[1:]):
+        if r0 > 0 >= r1:
+            f = r0 / (r0 - r1)
+            return float(np.exp(np.log(d0) + f * (np.log(d1) - np.log(d0))))
+    return None
+
+
+def phase_densify_threshold(card):
+    """Where the densified f32 matmul (TF32 off) starts to beat the SpMM
+    kernel: 8192^2 matrices at densities 1e-3 .. 3e-1 times B of width 50
+    (an ALS half-step), 256 and 8192 (the sparse leg of an 8192^2
+    ``multiply``).  Timed alone (layout and dense form prebuilt) and as
+    whole ``CSR.mult_dense`` calls on each route (the dense route
+    densifies anew in every call, as a released handle drops its dense
+    form).  At every point the route that ``_dense_affordable`` picks must
+    cost at most 1.5 times the faster one."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    n, widths = 8192, (50, 256, 8192)
+    rng = np.random.default_rng(11)
+    bs = {w: rng.standard_normal((n, w)).astype(np.float32) for w in widths}
+    bds = {w: torch.from_numpy(b).cuda() for w, b in bs.items()}
+    saved = cuda_k._DENSIFY_CROSSOVER
+    rows = {w: [] for w in widths}
+    try:
+        for d in (1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1):
+            a = sps.random(n, n, d, format="csr", random_state=rng,
+                           dtype=np.float32)
+            csr = CSR.from_scipy(a, device="cuda")
+            layout = cuda_k._cached_layout(csr)
+            h = cuda_k.to_handle(csr)
+            dense = h.dense
+            for w in widths:
+                b, bd = bs[w], bds[w]
+                iters = 5 if w > 1024 else 20
+                ref = a.astype(np.float64) @ b[:, :16].astype(np.float64)
+                spmm_share(spmm_op.spmm(layout, bd)[:, :16], ref)
+                spmm_share(cuda_k._matmul_f32(dense, bd)[:, :16], ref)
+                k_ms, _ = per_call(lambda: spmm_op.spmm(layout, bd), iters)
+                m_ms, _ = per_call(lambda: cuda_k._matmul_f32(dense, bd), iters)
+                picks_dense = cuda_k._dense_affordable(csr, w)
+                with use_kernel("cuda"):
+                    cuda_k._DENSIFY_CROSSOVER = ((1, 2.0),)  # the kernel route
+                    kc_ms, _ = per_call(lambda: csr.mult_dense(bd), iters)
+                    cuda_k._DENSIFY_CROSSOVER = ((1, 0.0),)  # the dense route
+                    dc_ms, _ = per_call(lambda: csr.mult_dense(bd), iters)
+                cuda_k._DENSIFY_CROSSOVER = saved
+                rows[w].append((d, kc_ms, dc_ms))
+                picked = dc_ms if picks_dense else kc_ms
+                print(f"[11] density {d:g} (nnz {a.nnz}), B x {w}: kernel "
+                      f"{k_ms:.5f} ms, matmul {m_ms:.5f} ms; whole mult_dense: "
+                      f"kernel route {kc_ms:.5f} ms, dense route {dc_ms:.5f} "
+                      f"ms; the port picks {'dense' if picks_dense else 'kernel'}"
+                      f" ({picked / min(kc_ms, dc_ms):.3f} of the faster); "
+                      f"card {card}")
+                assert picked <= 1.5 * min(kc_ms, dc_ms), (d, w, kc_ms, dc_ms)
+            cuda_k.release_handle(h)
+            del csr, layout, h, dense
+    finally:
+        cuda_k._DENSIFY_CROSSOVER = saved
+    for w in widths:
+        x = crossover(rows[w])
+        where = "never within 3e-1" if x is None else f"{x:.4g}"
+        print(f"[11] B x {w}: whole dense-route calls beat kernel-route ones "
+              f"from density {where}; the port's threshold is "
+              f"{cuda_k._min_density(w):.4g}")
+
+
 def main():
     card = phase_environment()
     phase_kernel_vs_plain()
+    phase_spmm_kernel_vs_plain()
 
-    from csr_tpu_torch.ops import spmv as spmv_op
+    from csr_tpu_torch.kernels import _listeners, cuda as cuda_k
+    from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
 
     fl = flagship()
     ml = movielens_shape()
@@ -323,9 +611,59 @@ def main():
 
     ms, plain_ms = phase_timing(*main_layouts[0][:2], card)
     phase_alone(main_layouts, card)
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=max_err, ms=ms, plain_ms=plain_ms
-    )]}))
+
+    # the SpMM main path, on the matrices of phases 3 and 4 (the bound
+    # CSR.mult_vec of each holds it; its layout is cached): mult_dense at
+    # both shapes, then multiply both ways
+    fl_csr, fl_a = main_layouts[0][3].__self__, main_layouts[0][2]
+    ml_csr, ml_a = main_layouts[2][3].__self__, main_layouts[2][2]
+    rng = np.random.default_rng(256)
+    b_fl = rng.standard_normal((fl_csr.ncols, 256)).astype(np.float32)
+    b_ml = rng.standard_normal((ml_csr.ncols, 50)).astype(np.float32)
+    routes = []
+    _listeners.append(
+        lambda e, f: routes.append((e, f["route"])) if "route" in f else None)
+    spmm_op.launches = 0
+    try:
+        bd_fl = phase_mult_dense("7", fl_csr, fl_a, b_fl)
+        bd_ml = phase_mult_dense("8", ml_csr, ml_a, b_ml)
+        mul_a, mul_b = phase_multiply()
+    finally:
+        _listeners.pop()
+    spmm_launches = spmm_op.launches
+    expect = [("mult_dense", "kernel")] * 2 + [("spgemm", "kernel")] * 2
+    assert routes == expect, routes
+    assert spmm_launches == 4, spmm_launches
+    print(f"[9] SpMM launches in the main path: {spmm_launches}; routes {routes}")
+
+    # the SpMM kernel against its plain version at the main path's shapes
+    # (these launches come after the count was read)
+    spmm_err = 0.0
+    for tag, layout, bd in (
+        ("flagship", cuda_k._cached_layout(fl_csr), bd_fl),
+        ("MovieLens shape", cuda_k._cached_layout(ml_csr), bd_ml),
+        ("multiply", cuda_k._cached_layout(mul_a),
+         torch.from_numpy(mul_b.toarray()).cuda()),
+    ):
+        c, c_ref = spmm_op.spmm(layout, bd), spmm_op.spmm_reference(layout, bd)
+        torch.cuda.synchronize()
+        err = float((c - c_ref).abs().max())
+        spmm_err = max(spmm_err, err)
+        share = spmm_share(c, c_ref.cpu().numpy())
+        print(f"[10] kernel vs plain, {tag} ({layout.nrows}x{layout.ncols}, "
+              f"n {bd.shape[1]}): max abs err {err:.3g} (|C| up to "
+              f"{float(c_ref.abs().max()):.4g}), share of bound {share:.3g}")
+        del c, c_ref
+    spmm_ms, spmm_plain_ms = phase_spmm_timing(cuda_k._cached_layout(fl_csr),
+                                               bd_fl, card)
+    phase_densify_threshold(card)
+
+    print(json.dumps({"kernels": [
+        dict(KERNEL, launches=launches, max_abs_err=max_err, ms=ms,
+             plain_ms=plain_ms),
+        dict(SPMM_KERNEL, launches=spmm_launches, max_abs_err=spmm_err,
+             ms=spmm_ms, plain_ms=spmm_plain_ms),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -11,9 +11,10 @@ would cost a copy.
 The value array is optional: a structure-only matrix has implicit
 values of 1.0 (float32).
 
-This slice ports the container, its conversions and SpMV in both
-directions.  The other methods of the JAX class are ROADMAP Queue 1
-items 5-7 and raise :class:`NotImplementedError` naming the item.
+The port so far holds the container, its conversions, SpMV in both
+directions, SpMM (``mult_dense``) and the dense-route SpGEMM
+(``multiply``).  The other methods of the JAX class are ROADMAP Queue 1
+item 7 and raise :class:`NotImplementedError` naming the item.
 """
 
 from __future__ import annotations
@@ -324,10 +325,66 @@ class CSR:
         return out
 
     def multiply(self, other, transpose=False):
-        _not_ported("CSR.multiply (SpGEMM)", "item 6")
+        """
+        SpGEMM: :math:`AB` (or :math:`AB^{T}`) on the active kernel.
+
+        Args:
+            other(CSR): the other matrix, on this matrix's device.
+            transpose(bool): if ``True``, compute :math:`AB^{T}`.
+
+        Returns:
+            CSR: the product, with explicit zeros filtered out, on this
+            matrix's device.
+        """
+        inner = other.ncols if transpose else other.nrows
+        _require(self.ncols == inner,
+                 f"cannot multiply {self.nrows}x{self.ncols} by "
+                 f"{other.nrows}x{other.ncols}{'^T' if transpose else ''}")
+        _require(other.device == self.device,
+                 f"operands on {self.device} and {other.device}")
+        K = get_kernel()
+
+        def mul(a, b_h):
+            with releasing(K.to_handle(a), K) as a_h:
+                c_h = K.mult_abt(a_h, b_h) if transpose else K.mult_ab(a_h, b_h)
+                with releasing(c_h, K):
+                    c = K.from_handle(c_h)
+            if c.device != self.device:  # the scipy oracle computes on the host
+                c = CSR(c.nrows, c.ncols, c.nnz, *c.host_arrays(),
+                        device=self.device)
+            c._filter_zeros()
+            return c
+
+        with releasing(K.to_handle(other), K) as b_h:
+            if self.nnz <= K.max_nnz:
+                return mul(self, b_h)
+            parts = [mul(s, b_h) for s in self._shard_rows(K.max_nnz)]
+        return CSR._assemble_shards(parts)
 
     def mult_dense(self, b):
-        _not_ported("CSR.mult_dense (SpMM)", "item 5")
+        """
+        SpMM: :math:`AB` for a dense ``B`` on the active kernel.
+
+        Args:
+            b(array-like): a matrix of shape ``(ncols, n)``; array-likes
+                are placed on the matrix's device.
+
+        Returns:
+            torch.Tensor: shape ``(nrows, n)``, on the matrix's device.
+        """
+        b = _as_tensor(b, None, self.device)
+        if b.ndim != 2 or b.shape[0] != self.ncols:
+            raise ValueError(f"operand of shape {tuple(b.shape)}, expected"
+                             f" ({self.ncols}, n)")
+        K = get_kernel()
+        if self.nnz <= K.max_nnz:
+            with releasing(K.to_handle(self), K) as h:
+                return K.mult_dense(h, b)
+        outs = []
+        for s in self._shard_rows(K.max_nnz):
+            with releasing(K.to_handle(s), K) as h:
+                outs.append(K.mult_dense(h, b))
+        return torch.cat(outs)
 
     def transpose(self, include_values=True):
         _not_ported("CSR.transpose", "item 7")
@@ -337,6 +394,16 @@ class CSR:
 
     def normalize_rows(self, normalization):
         _not_ported("CSR.normalize_rows", "item 7")
+
+    def _filter_zeros(self):
+        """Drop explicitly stored zero values, in place."""
+        if self.values is None:
+            return
+        rps, cis, vs, _ = structure.filter_nnzs_arrays(self, self.values != 0)
+        self.rowptrs = rps
+        self.colinds = cis
+        self._values = vs
+        self._host = None
 
     # -- capacity sharding -------------------------------------------------
 
@@ -379,19 +446,11 @@ class CSR:
 
     @classmethod
     def _assemble_shards(cls, shards):
-        """Reassemble a matrix from row shards."""
-        offs = np.cumsum([0] + [s.nnz for s in shards])
-        nnz = int(offs[-1])
-        rps = torch.cat(
-            [s.rowptrs[:-1].to(torch.int64) + int(o) for s, o in zip(shards, offs)]
-            + [torch.tensor([nnz], device=shards[0].device)]
-        )
-        cis = torch.cat([s.colinds for s in shards])
-        vs = None
-        if all(s.values is not None for s in shards):
-            vs = torch.cat([s.values for s in shards])
-        return cls(sum(s.nrows for s in shards), shards[0].ncols, nnz, rps,
-                   cis, vs)
+        """Reassemble a matrix from row shards; the first shard decides
+        whether it has values (see
+        :func:`~csr_tpu_torch.structure.assemble_shards_arrays`)."""
+        nrows, ncols, nnz, rps, cis, vs = structure.assemble_shards_arrays(shards)
+        return cls(nrows, ncols, nnz, rps, cis, vs, _cast=False)
 
     # -- dunder ------------------------------------------------------------
 

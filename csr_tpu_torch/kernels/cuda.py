@@ -5,18 +5,34 @@ CUDA kernel backend, the tuned backend (counterpart of
 ``to_handle`` returns a handle whose micro-block layouts (of the matrix
 and of its transpose) are packed on the host at first use and cached on
 the matrix.  SpMV in both directions runs the hand-written kernel behind
-:func:`csr_tpu_torch.ops.spmv.spmv`; on a CPU matrix that wrapper runs
-the kernel's plain PyTorch version.
+:func:`csr_tpu_torch.ops.spmv.spmv`; SpMM (``mult_dense``) and the
+sparse leg of SpGEMM (``mult_ab``, ``mult_abt``) run the one behind
+:func:`csr_tpu_torch.ops.spmm.spmm`.  On a CPU matrix each wrapper runs
+its kernel's plain PyTorch version.
 
-Routing, as in the JAX package:
+Routing, as in the JAX package, decided from shapes and dtypes before
+any launch:
 
 * ``nnz == 0`` returns zeros;
 * f64 values or operands go to the ``torch`` backend, as the JAX package
   routes f64 away from its kernel.  A kernel templated on f64 is ROADMAP
   Queue 1 item 7;
-* a matrix outside the packing range (more than 32767 row windows or
-  65535 column windows) raises :class:`NotImplementedError`: its
-  chunk/panel form ``spmv_large`` is ROADMAP Queue 1 item 4.
+* SpMV of a matrix outside the packing range (more than 32767 row
+  windows or 65535 column windows) raises :class:`NotImplementedError`:
+  its chunk/panel form ``spmv_large`` is ROADMAP Queue 1 item 4.  SpMM of
+  such a matrix goes to the ``torch`` backend;
+* SpMM of a matrix whose dense f32 form fits the dense budget of
+  :mod:`csr_tpu_torch.ops.spgemm` and whose density is at least
+  :func:`_min_density` of B's width is a densified f32 ``torch.matmul``
+  with TF32 off (the JAX package's ``Precision.HIGHEST`` product, which
+  it leaves to XLA); the threshold was measured on the H100 (PERF.md);
+  the rest runs the SpMM kernel;
+* SpGEMM densifies B (or B^T) within the budget of
+  :mod:`csr_tpu_torch.ops.spgemm` and multiplies A by it as SpMM does;
+  past that budget it raises (ESC, ROADMAP Queue 1 item 6).
+
+Each SpMM or SpGEMM emits a ``mult_dense`` or ``spgemm`` trace event
+whose ``route`` is ``zeros``, ``torch``, ``dense`` or ``kernel``.
 """
 
 from __future__ import annotations
@@ -28,6 +44,8 @@ from csr_tpu_torch import native
 from csr_tpu_torch.kernels import torch as _torch_k
 from csr_tpu_torch.kernels import trace
 from csr_tpu_torch.ops import microblock
+from csr_tpu_torch.ops import spgemm as _spgemm_op
+from csr_tpu_torch.ops import spmm as _spmm_op
 from csr_tpu_torch.ops import spmv as _spmv_op
 
 # Per-operation capacity, from the card's memory: an H100 holds 80 GB.  A
@@ -90,15 +108,16 @@ def _cached_layout_t(csr) -> microblock.MicroBlockLayout:
 
 
 class CudaHandle:
-    """The CSR plus its lazily built layouts."""
+    """The CSR plus its lazily built layouts and dense form."""
 
-    __slots__ = ("csr", "_layout", "_layout_t", "_torch_handle")
+    __slots__ = ("csr", "_layout", "_layout_t", "_torch_handle", "_dense")
 
     def __init__(self, csr):
         self.csr = csr
         self._layout = None
         self._layout_t = None
         self._torch_handle = None
+        self._dense = None
 
     @property
     def layout(self) -> microblock.MicroBlockLayout:
@@ -117,6 +136,13 @@ class CudaHandle:
         if self._torch_handle is None:
             self._torch_handle = _torch_k.to_handle(self.csr)
         return self._torch_handle
+
+    @property
+    def dense(self) -> torch.Tensor:
+        """The matrix densified in f32, cached on the handle."""
+        if self._dense is None:
+            self._dense = _torch_k.densify(self.torch_handle, torch.float32)
+        return self._dense
 
 
 def to_handle(csr):
@@ -138,6 +164,7 @@ def release_handle(h, drop_cache: bool = False):
     h._layout = None
     h._layout_t = None
     h._torch_handle = None
+    h._dense = None
     if drop_cache:
         h.csr._mb_layout_cache = None
         h.csr._mb_layout_t_cache = None
@@ -173,13 +200,110 @@ def mult_vec_t(h, v):
     return _mult(h, v, transpose=True)
 
 
+#: densify-and-matmul route: (width n of B, density) points at which a
+#: whole mult_dense call on the dense route (densify + full-f32 matmul)
+#: starts to beat one on the SpMM kernel.  Both routes cost about
+#: rows x columns x n of A times a rate (the matmul's, or the kernel's at
+#: that density), plus densifying, which does not grow with n; so the
+#: crossover is a density that moves with n alone, and not monotonically
+#: (the kernel's time shrinks little below n = 256).  Measured on an H100
+#: 80GB HBM3 at 700 W (chip_smoke.py phase 11, 8192^2 at densities 1e-3
+#: to 3e-1, log-interpolated; PERF.md).
+_DENSIFY_CROSSOVER = ((50, 0.05895), (256, 0.0738), (8192, 0.0433))
+
+
+def _min_density(n: int) -> float:
+    """The crossover density at width ``n``: linear in log n between the
+    points of :data:`_DENSIFY_CROSSOVER`, constant past its ends."""
+    widths, densities = zip(*_DENSIFY_CROSSOVER)
+    return float(np.interp(np.log(max(n, 1)), np.log(widths), densities))
+
+
+def _dense_affordable(csr, n: int) -> bool:
+    """Whether ``A @ B`` with B ``n`` wide takes the dense route."""
+    elems = csr.nrows * csr.ncols
+    if elems == 0 or elems * 4 > _spgemm_op.max_dense_bytes:
+        return False
+    return csr.nnz / elems >= _min_density(n)
+
+
+def _packable(csr) -> bool:
+    """Whether the micro-block layout can address the matrix (at the
+    wider window, which :func:`microblock.choose_layout` falls back to)."""
+    return microblock.in_range(csr.nrows, csr.ncols, 2 * microblock.LANE)
+
+
+def _matmul_f32(a, b):
+    """``a @ b`` in full f32, TF32 off (the JAX package's
+    ``Precision.HIGHEST``)."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _sparse_times_dense(h, b, op: str):
+    """``A @ b`` for f32 dense ``b`` (A's columns by n), on the route its
+    shape picks: densified matmul, the SpMM kernel, or (outside the
+    packing range) the torch backend.  Emits a trace event naming it."""
+    c = h.csr
+    if _dense_affordable(c, b.shape[1]):
+        trace(op, route="dense", shape=(c.nrows, c.ncols), n=b.shape[1])
+        return _matmul_f32(h.dense, b)
+    if not _packable(c):
+        trace(op, route="torch", shape=(c.nrows, c.ncols), n=b.shape[1])
+        return _torch_k.mult_dense(h.torch_handle, b)
+    trace(op, route="kernel", shape=(c.nrows, c.ncols), n=b.shape[1])
+    return _spmm_op.spmm(h.layout, b)
+
+
 def mult_dense(h, B):
-    raise NotImplementedError("SpMM is ROADMAP Queue 1 item 5")
+    """SpMM ``A @ B`` with dense ``B`` (see the module docstring for the
+    routes)."""
+    c = h.csr
+    out_dtype = _torch_k._result_dtype(_torch_k._values_dtype(c), B.dtype)
+    if c.nnz == 0:
+        trace("mult_dense", route="zeros", shape=(c.nrows, c.ncols), n=B.shape[1])
+        return torch.zeros(c.nrows, B.shape[1], dtype=out_dtype, device=B.device)
+    if out_dtype == torch.float64:
+        trace("mult_dense", route="torch", shape=(c.nrows, c.ncols), n=B.shape[1])
+        return _torch_k.mult_dense(h.torch_handle, B)
+    return _sparse_times_dense(h, B.to(torch.float32), "mult_dense").to(out_dtype)
+
+
+def _spgemm(a_h, b_h, transpose: bool):
+    """SpGEMM on the dense route: densify B (or B^T) in f32, multiply A by
+    it on :func:`_sparse_times_dense`'s route, compact the product to CSR.
+    f64 goes to the torch backend; a product past the dense budget raises
+    (ESC, ROADMAP Queue 1 item 6)."""
+    a, b = a_h.csr, b_h.csr
+    out_dtype = _torch_k._result_dtype(_torch_k._values_dtype(a),
+                                       _torch_k._values_dtype(b))
+    if out_dtype == torch.float64:
+        trace("spgemm", route="torch", shape=(a.nrows, a.ncols), n=b.nrows)
+        fn = _torch_k.mult_abt if transpose else _torch_k.mult_ab
+        return to_handle(_torch_k.from_handle(fn(a_h.torch_handle, b_h.torch_handle)))
+    n_out = b.nrows if transpose else b.ncols
+    if not _spgemm_op.dense_fits(a.nrows, b.nrows, b.ncols, n_out, out_dtype):
+        mul = _spgemm_op.esc_mult_abt if transpose else _spgemm_op.esc_mult_ab
+        return to_handle(mul(a, b, out_dtype))
+    if a.nnz == 0 or b.nnz == 0:
+        from csr_tpu_torch import CSR
+
+        trace("spgemm", route="zeros", shape=(a.nrows, a.ncols), n=n_out)
+        return to_handle(CSR.empty(a.nrows, n_out, device=a.device))
+    b_dense = _torch_k.densify(b_h.torch_handle, torch.float32, transpose)
+    c_dense = _sparse_times_dense(a_h, b_dense, "spgemm")
+    return to_handle(_torch_k.dense_to_csr(c_dense))
 
 
 def mult_ab(a_h, b_h):
-    raise NotImplementedError("SpGEMM is ROADMAP Queue 1 item 6")
+    """SpGEMM ``A @ B`` (see :func:`_spgemm`)."""
+    return _spgemm(a_h, b_h, transpose=False)
 
 
 def mult_abt(a_h, b_h):
-    raise NotImplementedError("SpGEMM is ROADMAP Queue 1 item 6")
+    """SpGEMM ``A @ B^T`` (see :func:`_spgemm`)."""
+    return _spgemm(a_h, b_h, transpose=True)

@@ -3,8 +3,10 @@ Plain PyTorch kernel backend (counterpart of :mod:`csr_tpu.kernels.xla`).
 
 The portable backend: it runs on any device, with no kernel of this
 repository.  SpMV is ``index_add_`` of ``values * v[colinds]`` over the
-per-entry row ids that the handle carries.  SpMM and SpGEMM are ROADMAP
-Queue 1 items 5 and 6.
+per-entry row ids that the handle carries; SpMM is ``index_add_`` of
+``values[:, None] * B[colinds]`` over the same ids; SpGEMM densifies B
+and runs that SpMM, within the dense budget of
+:mod:`csr_tpu_torch.ops.spgemm`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import torch
 
 from csr_tpu_torch import structure
 from csr_tpu_torch.kernels import trace
+from csr_tpu_torch.ops import spgemm as _esc
+from csr_tpu_torch.ops import spmm as _spmm_op
 
 max_nnz = np.iinfo("i8").max
 
@@ -83,13 +87,72 @@ def mult_vec_t(h, v):
     return out.index_add_(0, c.colinds, prod)
 
 
+def _densify(vals, cols, rids, nrows: int, ncols: int, dtype):
+    """Dense ``(nrows, ncols)`` matrix of the entries; duplicates add."""
+    out = torch.zeros(nrows * ncols, dtype=dtype, device=vals.device)
+    flat = rids.to(torch.int64) * ncols + cols
+    return out.index_add_(0, flat, vals.to(dtype)).view(nrows, ncols)
+
+
+def densify(h, dtype, transpose: bool = False):
+    """A handle's matrix (or its transpose, built directly) as a dense
+    ``dtype`` tensor."""
+    c = h.csr
+    vals = c._required_values()
+    if transpose:
+        return _densify(vals, h.row_ids, c.colinds, c.ncols, c.nrows, dtype)
+    return _densify(vals, c.colinds, h.row_ids, c.nrows, c.ncols, dtype)
+
+
+def _spgemm_dense(a_vals, a_cols, a_rids, b_dense, nrows: int, ncols: int,
+                  out_dtype):
+    """Dense-accumulator product: ``C[r] += a_i * B[c_i, :]``."""
+    out = torch.zeros(nrows, ncols, dtype=out_dtype, device=b_dense.device)
+    return _spmm_op.scatter_rows(out, a_rids, a_cols, a_vals.to(out_dtype),
+                                 b_dense.to(out_dtype))
+
+
+def dense_to_csr(dense):
+    """The nonzero entries of a dense matrix as a CSR, in row-major
+    (column-sorted) order, on the matrix's device."""
+    from csr_tpu_torch import CSR
+
+    nrows, ncols = dense.shape
+    mask = dense != 0
+    rids, cols = torch.nonzero(mask, as_tuple=True)
+    rps = torch.zeros(nrows + 1, dtype=torch.int64, device=dense.device)
+    torch.cumsum(mask.sum(1), 0, out=rps[1:])
+    return CSR(nrows, ncols, cols.shape[0], rps, cols, dense[mask])
+
+
 def mult_dense(h, B):
-    raise NotImplementedError("SpMM is ROADMAP Queue 1 item 5")
+    """SpMM ``A @ B`` with dense ``B``."""
+    c = h.csr
+    vals = c._required_values()
+    out_dtype = _result_dtype(vals.dtype, B.dtype)
+    return _spgemm_dense(vals, c.colinds, h.row_ids, B, c.nrows, B.shape[1],
+                         out_dtype)
+
+
+def _spgemm(a_h, b_h, transpose: bool):
+    """SpGEMM by densification: densify B (or B^T), accumulate A's rows
+    of it, compact the product to CSR.  Past the dense budget the
+    product needs ESC (:mod:`csr_tpu_torch.ops.spgemm`)."""
+    a, b = a_h.csr, b_h.csr
+    out_dtype = _result_dtype(_values_dtype(a), _values_dtype(b))
+    n_out = b.nrows if transpose else b.ncols
+    if not _esc.dense_fits(a.nrows, b.nrows, b.ncols, n_out, out_dtype):
+        mul = _esc.esc_mult_abt if transpose else _esc.esc_mult_ab
+        return to_handle(mul(a, b, out_dtype))
+    b_dense = densify(b_h, out_dtype, transpose)
+    return to_handle(dense_to_csr(mult_dense(a_h, b_dense)))
 
 
 def mult_ab(a_h, b_h):
-    raise NotImplementedError("SpGEMM is ROADMAP Queue 1 item 6")
+    """SpGEMM ``A @ B``."""
+    return _spgemm(a_h, b_h, transpose=False)
 
 
 def mult_abt(a_h, b_h):
-    raise NotImplementedError("SpGEMM is ROADMAP Queue 1 item 6")
+    """SpGEMM ``A @ B^T``."""
+    return _spgemm(a_h, b_h, transpose=True)

@@ -1,12 +1,12 @@
 """
 Build and bind the CUDA kernels of ``csrc/``.
 
-Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C entry, at first use, into this package's
-git-ignored ``_build/`` directory; the file name carries a hash of the
-source and flags.  The library is loaded with :mod:`ctypes`; pointers and
-the stream are passed as ``c_void_p`` from ``tensor.data_ptr()`` and
-``torch.cuda.current_stream().cuda_stream``.
+Each source ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a``
+into its own shared library with a plain C entry ``csrt_<name>``, at
+first use, into this package's git-ignored ``_build/`` directory; the
+file name carries a hash of the source and flags.  The library is loaded
+with :mod:`ctypes`; pointers and the stream are passed as ``c_void_p``
+from ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
 
 Nothing here runs at import: the CPU tests import this module on machines
 with no ``nvcc``.  A build or launch failure raises; nothing falls back.
@@ -22,18 +22,28 @@ import torch
 
 from csr_tpu_torch.native.build import build_cached
 
-SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "csrc", "spmv_microblock.cu")
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIB = None
-#: seconds the first :func:`library` call took (build and load)
-build_seconds = None
-#: nvcc's output of the build (ptxas registers, shared memory, spills)
-build_log = ""
+_vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+#: kernel name (the source's stem) -> argument types of ``csrt_<name>``
+ENTRIES = {
+    # vals, meta, rbcb, x, y, n_groups, shift, nrows, stream
+    "spmv_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp],
+    # vals, meta, rbcb, b, c, n_groups, shift, nrows, n, stream
+    "spmm_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _vp],
+}
+
+#: loaded libraries by kernel name
+_LIBS: dict = {}
+#: seconds each kernel's first :func:`library` call took (build and load)
+build_seconds: dict = {}
+#: nvcc's output of each build (ptxas registers, shared memory, spills)
+build_log: dict = {}
 
 
 def _nvcc() -> str:
@@ -48,32 +58,42 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library():
-    """The loaded kernel library, built first if needed."""
-    global _LIB, build_seconds, build_log
-    if _LIB is None:
+def library(name: str):
+    """The loaded library of kernel ``name``, built first if needed."""
+    if name not in _LIBS:
         t0 = time.perf_counter()
-        path, build_log = build_cached(SRC, "spmv_microblock",
-                                       [_nvcc(), *_FLAGS], timeout=600)
+        path, log = build_cached(os.path.join(CSRC, f"{name}.cu"), name,
+                                 [_nvcc(), *_FLAGS], timeout=600)
         lib = ctypes.CDLL(path)
-        vp = ctypes.c_void_p
-        lib.csrt_spmv_microblock.restype = ctypes.c_int
-        lib.csrt_spmv_microblock.argtypes = [
-            vp, vp, vp, vp, vp, ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp,
-        ]
-        build_seconds = time.perf_counter() - t0
-        _LIB = lib
-    return _LIB
+        fn = getattr(lib, f"csrt_{name}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ENTRIES[name]
+        build_log[name] = log
+        build_seconds[name] = time.perf_counter() - t0
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def _launch(name: str, *args) -> None:
+    rc = getattr(library(name), f"csrt_{name}")(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def spmv_microblock(vals, meta, rbcb, x, y, n_groups: int, shift: int,
                     nrows: int) -> None:
     """Launch the micro-block SpMV kernel, ``y += A @ x``, on the current
     stream.  The caller has checked the tensors."""
-    rc = library().csrt_spmv_microblock(
-        vals.data_ptr(), meta.data_ptr(), rbcb.data_ptr(), x.data_ptr(),
-        y.data_ptr(), n_groups, shift, nrows,
-        torch.cuda.current_stream(y.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"spmv_microblock launch failed: CUDA error {rc}")
+    _launch("spmv_microblock", vals.data_ptr(), meta.data_ptr(),
+            rbcb.data_ptr(), x.data_ptr(), y.data_ptr(), n_groups, shift,
+            nrows, torch.cuda.current_stream(y.device).cuda_stream)
+
+
+def spmm_microblock(vals, meta, rbcb, b, c, n_groups: int, shift: int,
+                    nrows: int) -> None:
+    """Launch the micro-block SpMM kernel, ``C += A @ B`` with B and C
+    row-major, on the current stream.  The caller has checked the
+    tensors."""
+    _launch("spmm_microblock", vals.data_ptr(), meta.data_ptr(),
+            rbcb.data_ptr(), b.data_ptr(), c.data_ptr(), n_groups, shift,
+            nrows, b.shape[1], torch.cuda.current_stream(c.device).cuda_stream)

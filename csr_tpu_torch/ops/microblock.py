@@ -95,6 +95,33 @@ class MicroBlockLayout:
         return m & ((1 << s) - 1), m >> s
 
 
+def _check(name, t, dtype, shape, device):
+    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
+        raise ValueError(
+            f"{name}: expected {dtype} {shape} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_on_card(layout: MicroBlockLayout) -> None:
+    """Raise ValueError unless the layout's arrays are what the CUDA
+    kernels read: dtypes, shapes, one device, contiguity, 16 B aligned
+    values, 8 B aligned metadata, and whole groups of ``ACC_GROUP``
+    micro-rows (stripes are padded to ``ACC_GROUP``)."""
+    dev = layout.device
+    m_pad = layout.vals.shape[0]
+    _check("vals", layout.vals, torch.float32, (m_pad, LANE), dev)
+    _check("meta", layout.meta, torch.uint16, (m_pad, LANE), dev)
+    _check("rbcb", layout.rbcb, torch.int32, (m_pad,), dev)
+    if layout.vals.data_ptr() % 16 or layout.meta.data_ptr() % 8:
+        raise ValueError("vals must be 16 B aligned and meta 8 B aligned")
+    if layout.n_microrows % ACC_GROUP or layout.n_microrows > m_pad:
+        raise ValueError(f"n_microrows {layout.n_microrows} is not a whole"
+                         f" number of {ACC_GROUP}-micro-row groups <= {m_pad}")
+
+
 def in_range(nrows: int, ncols: int, window: int) -> bool:
     """Whether ``rbcb`` can address the matrix at this window width."""
     return -(-nrows // LANE) <= MAX_RB and -(-ncols // window) <= MAX_CB

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .microblock import ACC_GROUP, LANE, MicroBlockLayout
+from .microblock import ACC_GROUP, LANE, MicroBlockLayout, check_on_card
 
 #: number of launches of the CUDA kernel (plain-version calls not counted)
 launches = 0
@@ -54,16 +54,6 @@ def spmv_reference(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
     return y[: layout.nrows]
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != shape or t.device != device:
-        raise ValueError(
-            f"{name}: expected {dtype} {shape} on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def spmv(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for a micro-block matrix; returns f32 of length
     ``nrows`` on the layout's device.  ``x`` must lie on that device."""
@@ -79,16 +69,7 @@ def spmv(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"spmv runs on CPU or CUDA tensors, not {dev}")
 
-    m_pad = layout.vals.shape[0]
-    _check("vals", layout.vals, torch.float32, (m_pad, LANE), dev)
-    _check("meta", layout.meta, torch.uint16, (m_pad, LANE), dev)
-    _check("rbcb", layout.rbcb, torch.int32, (m_pad,), dev)
-    if layout.vals.data_ptr() % 16 or layout.meta.data_ptr() % 8:
-        raise ValueError("vals must be 16 B aligned and meta 8 B aligned")
-    # stripes are padded to ACC_GROUP, so a layout holds whole groups
-    if layout.n_microrows % ACC_GROUP or layout.n_microrows > m_pad:
-        raise ValueError(f"n_microrows {layout.n_microrows} is not a whole"
-                         f" number of {ACC_GROUP}-micro-row groups <= {m_pad}")
+    check_on_card(layout)
     x = x.to(torch.float32).contiguous()
     y = torch.zeros(layout.nrows, dtype=torch.float32, device=dev)
     if layout.n_microrows == 0:

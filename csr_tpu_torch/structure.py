@@ -1,15 +1,17 @@
 """
 Structure helpers (counterpart of :mod:`csr_tpu.structure`).
 
-Only what the SpMV slice needs: host COO->CSR, the per-entry row ids,
-and row subsetting.  The rest of the JAX module (transpose, sort, pick,
-filter, assemble) is ROADMAP Queue 1 item 7.
+What the SpMV and SpMM slices need: host COO->CSR, the per-entry row
+ids, row subsetting, entry filtering and shard assembly.  The rest of
+the JAX module (transpose, sort, pick) is ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .dtypes import COLIND_DTYPE, ptr_dtype
 
 
 def from_coo(nrows: int, rows, cols, values=None):
@@ -47,3 +49,38 @@ def subset_rows_arrays(rowptrs, colinds, values, begin: int, end: int):
     rps = rowptrs[begin : end + 1] - sp
     vs = None if values is None else values[sp:ep]
     return rps, colinds[sp:ep], vs, ep - sp
+
+
+def filter_nnzs_arrays(csr, filt):
+    """Keep only the entries of ``csr`` where the boolean tensor ``filt``
+    is True.  The new row pointers are the running count of kept entries
+    read at the old row pointers.  Returns ``(rowptrs, colinds, values,
+    nnz)``."""
+    kept = torch.zeros(csr.nnz + 1, dtype=torch.int64, device=filt.device)
+    torch.cumsum(filt, 0, out=kept[1:])
+    nnz = int(kept[-1])
+    rps = kept[csr.rowptrs.to(torch.int64)].to(ptr_dtype(nnz))
+    vs = None if csr.values is None else csr.values[filt]
+    return rps, csr.colinds[filt], vs, nnz
+
+
+def assemble_shards_arrays(shards):
+    """Concatenate row shards back into one matrix.  The first shard
+    decides whether the result has values; shards without values then
+    contribute implicit ones.  Returns ``(nrows, ncols, nnz, rowptrs,
+    colinds, values)``."""
+    nrows = sum(s.nrows for s in shards)
+    ncols = max(s.ncols for s in shards)
+    nnz = sum(s.nnz for s in shards)
+    dev = shards[0].device
+    parts = [torch.zeros(1, dtype=torch.int64, device=dev)]
+    off = 0
+    for s in shards:
+        parts.append(s.rowptrs[1:].to(torch.int64) + off)
+        off += s.nnz
+    rps = torch.cat(parts).to(ptr_dtype(nnz))
+    cis = torch.cat([s.colinds.to(COLIND_DTYPE) for s in shards])
+    vs = None
+    if shards[0].values is not None:
+        vs = torch.cat([s._required_values() for s in shards])
+    return nrows, ncols, nnz, rps, cis, vs

@@ -156,6 +156,32 @@ def test_row_shards(kernel, monkeypatch):
     assert (whole.to_scipy() != a).nnz == 0
 
 
+@pytest.mark.parametrize("first_has_values", [True, False])
+def test_assemble_mixed_value_shards(first_has_values):
+    """Shards of which only some carry values assemble as the JAX package
+    assembles them: the first shard's value policy wins, and shards
+    without values contribute implicit ones."""
+    a = _matrix()
+    cuts = [0, 90, 170, 260]
+    has_values = [first_has_values, not first_has_values, True]
+    port, ref = [], []
+    for (lo, hi), hv in zip(zip(cuts[:-1], cuts[1:]), has_values):
+        s = a[lo:hi]
+        vs = s.data if hv else None
+        port.append(CSR(s.shape[0], s.shape[1], s.nnz, s.indptr, s.indices, vs))
+        ref.append(csr_tpu.CSR(s.shape[0], s.shape[1], s.nnz, s.indptr,
+                               s.indices, vs))
+    got = CSR._assemble_shards(port)
+    expect = csr_tpu.CSR._assemble_shards(ref)
+    assert (got.nrows, got.ncols, got.nnz) == (expect.nrows, expect.ncols, expect.nnz)
+    assert np.array_equal(got.rowptrs.numpy(), np.asarray(expect.rowptrs))
+    assert np.array_equal(got.colinds.numpy(), np.asarray(expect.colinds))
+    assert (got.values is None) == (expect.values is None) == (not first_has_values)
+    if first_has_values:
+        assert got.values.dtype == torch.float32
+        assert np.array_equal(got.values.numpy(), np.asarray(expect.values))
+
+
 def test_empty_and_out_of_range():
     z = CSR.empty(5, 7)
     with kernels.use_kernel("cuda"):
@@ -194,7 +220,7 @@ def test_container_matches_reference():
     assert e.nnz == 3 and e.values.dtype == torch.float32
     assert torch.equal(CSR.empty(3, 4, values=False)._required_values(), torch.ones(0))
     with pytest.raises(NotImplementedError, match="Queue 1"):
-        c.multiply(c)
+        c.transpose()
 
 
 def test_pickle_round_trip():

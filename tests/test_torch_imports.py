@@ -44,7 +44,7 @@ import csr_tpu_torch
 for m in pkgutil.walk_packages(csr_tpu_torch.__path__, "csr_tpu_torch."):
     importlib.import_module(m.name)
 from csr_tpu_torch.ops import _cuda
-assert _cuda._LIB is None, "a kernel was built at import"
+assert not _cuda._LIBS, "a kernel was built at import"
 print("imported", len(sys.modules))
 """
 

@@ -28,6 +28,16 @@ def random_matrix(nrows, ncols, density, seed, big_group=True):
     return a.tocsr()
 
 
+def assert_product_close(c, ref):
+    """The JAX suite's tolerance for products (tests/test_mult_dense.py,
+    tests/test_multiply.py): rtol 5e-4, atol 1e-4 times the largest
+    |ref| (at least 1)."""
+    ref = np.asarray(ref, np.float64)
+    scale = max(1.0, np.abs(ref).max(initial=0))
+    np.testing.assert_allclose(np.asarray(c, np.float64), ref, rtol=5e-4,
+                               atol=1e-4 * scale)
+
+
 class Scipy:
     """A scipy matrix behind the ``to_scipy`` hook that
     ``util.assert_spmv_close`` reads its bound's matrix from."""
