@@ -5,8 +5,9 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
 It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
 ``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
-runs eleven phases; any failure raises and the script exits nonzero.  It
-needs a CUDA device and never falls back to the CPU.
+runs sixteen phases; any failure raises and the script exits nonzero.  It
+needs a CUDA device and never falls back to the CPU: every matrix is
+built with no device named and must land on the card.
 
 1. Environment: the card's name and power limit, the CUDA version, each
    kernel's build time and ptxas report.
@@ -39,6 +40,36 @@ needs a CUDA device and never falls back to the CPU.
     3e-1; the route the port picks must cost at most 1.5 times the faster
     one at every point.
 
+12. The bucket-selecting SpMV kernel against its plain version
+    (``spmv_bucket_reference``) on the card: small seeded stacks of two
+    layers by three buckets, one of them empty, window 128/256 x pair
+    1/2/4, every bucket of every layer, adding into a non-zero ``y``;
+    held to the SpMV bound against the plain version and against scipy.
+13. The ring main path in the mesh's local form with D = 4 (what a
+    four-card ring would hold, on one card) at the flagship and at the
+    MovieLens-25M shape: ``partition_ring_mb`` -> ``.shard(make_mesh(4))``
+    -> ``scatter_x`` -> ``spmv_ring_mb`` -> ``collect_rows``, against scipy
+    and against ``CSR.mult_vec`` of the unsplit matrix; the stack's bytes,
+    fill, share of padding groups, packing time and launch count.
+14. ``mb_dist.spmv``, ``spmv_halo`` and ``spmv_t`` (replicated and
+    scattered) at the flagship with D = 4, against scipy; the SpMV kernel
+    against its plain version on every shard's view of the stacks; the
+    portable ``ring`` and ``dist`` forms beside them, and
+    ``entry.dryrun_multichip(4)``.
+15. Ring times at both shapes over chained products (CUDA events): the
+    ring on the kernel, ``CSR.mult_vec`` of the unsplit matrix, the ring
+    on the plain version; the bucket kernel's device time by
+    ``torch.profiler``; the ring's steps alone at both shapes, the kernel
+    held to the SpMV bound against its plain version and scipy at every
+    step, with the device time of the kernel, the plain version and the
+    library call on each step's entries, all by ``torch.profiler``.
+16. The yardsticks: ``torch.sparse_csr_tensor(...) @ x`` and ``@ B`` on
+    the same products at both shapes (timed only; the port never calls
+    them), and each kernel's bound, the least time the card could take:
+    the CSR form (8 B an entry plus row pointers), the operand and the
+    result moved once at the published bandwidth, or 2 nnz n operations at
+    the published f32 rate, whichever is larger.
+
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
 window, plus 1e-6), computed here on sparse matrices; SpMM ones that of
@@ -68,6 +99,12 @@ KERNEL = {
     "route": "cuda",
     "source": "csr_tpu_torch/csrc/spmv_microblock.cu",
     "replaces": "csr_tpu/ops/spmv.py:79",
+}
+BUCKET_KERNEL = {
+    "name": "spmv_bucket",
+    "route": "cuda",
+    "source": "csr_tpu_torch/csrc/spmv_bucket.cu",
+    "replaces": "csr_tpu/ops/spmv.py:237",
 }
 SPMM_KERNEL = {
     "name": "spmm_microblock",
@@ -150,6 +187,37 @@ def per_call(fn, iters=50):
     host = (time.perf_counter() - t0) / iters * 1e3
     end.synchronize()
     return start.elapsed_time(end) / iters, host
+
+
+def device_ms(fn, calls=10):
+    """Milliseconds of device time per call of ``fn``: the time of every
+    kernel and copy ``torch.profiler`` saw on the card over ``calls`` calls
+    (after one warm-up call), so the host's pace is left out.  The same
+    clock for a hand-written kernel, its plain version and a library call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    # device events only: a CPU op's entry repeats its kernels' time
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    assert total > 0, "the profiler saw no device time"
+    return total / calls / 1e3
+
+
+def fit(y, n, dim=0):
+    """``y`` cut or zero-padded to length ``n`` along ``dim``: a result
+    made into the next operand of a chained loop on a matrix that is not
+    square."""
+    if y.shape[dim] >= n:
+        return y.narrow(dim, 0, n).contiguous()
+    pad = (0, 0) * (y.ndim - 1 - dim) + (0, n - y.shape[dim])
+    return torch.nn.functional.pad(y, pad)
 
 
 def card_line() -> str:
@@ -272,7 +340,8 @@ def phase_main_path(tag, nrows, ncols, rowptr, cols, vals, x, xt):
     from csr_tpu_torch.ops import spmv as spmv_op
 
     nnz = len(cols)
-    csr = CSR(nrows, ncols, nnz, rowptr, cols, vals, device="cuda")
+    csr = CSR(nrows, ncols, nnz, rowptr, cols, vals)
+    assert csr.device.type == "cuda", csr.device
     a = sps.csr_matrix((vals, cols, rowptr), shape=(nrows, ncols))
     before = spmv_op.launches
     with use_kernel("cuda"):
@@ -461,9 +530,10 @@ def phase_multiply():
     mats = []
     for seed in (81, 82):
         rp, ci, v = sparse_square(n, per_row, seed)
-        mats.append((CSR(n, n, len(ci), rp, ci, v, device="cuda"),
+        mats.append((CSR(n, n, len(ci), rp, ci, v),
                      sps.csr_matrix((v, ci, rp), shape=(n, n))))
     (A, a), (B, b) = mats
+    assert A.device.type == B.device.type == "cuda"
     assert not cuda_k._dense_affordable(A, n), "A densifies: lower its density"
     for transpose in (False, True):
         with use_kernel("cuda"):
@@ -539,7 +609,8 @@ def phase_densify_threshold(card):
         for d in (1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1):
             a = sps.random(n, n, d, format="csr", random_state=rng,
                            dtype=np.float32)
-            csr = CSR.from_scipy(a, device="cuda")
+            csr = CSR.from_scipy(a)
+            assert csr.device.type == "cuda", csr.device
             layout = cuda_k._cached_layout(csr)
             h = cuda_k.to_handle(csr)
             dense = h.dense
@@ -577,6 +648,388 @@ def phase_densify_threshold(card):
         print(f"[11] B x {w}: whole dense-route calls beat kernel-route ones "
               f"from density {where}; the port's threshold is "
               f"{cuda_k._min_density(w):.4g}")
+
+
+def small_stack(window, pair, seed):
+    """A stack of two layers by three buckets of 512 x 768 layouts at one
+    (window, pair), bucket 1 of layer 0 empty, padded to the largest as
+    the ring pads its buckets; and the scipy matrix of each bucket."""
+    from csr_tpu_torch.ops import microblock
+
+    nrows, ncols = 512, 768
+    mats, layouts = [], []
+    for l in range(2):
+        for b in range(3):
+            rng = np.random.default_rng(seed + 10 * l + b)
+            a = sps.random(nrows, ncols, 0.0 if (l, b) == (0, 1) else 0.02 * (b + 1),
+                           format="csr", random_state=rng, dtype=np.float32)
+            mats.append(a)
+            layouts.append(microblock.build_microblocks_host(
+                nrows, ncols, a.indptr, a.indices, a.data, window=window,
+                pair=pair, device="cpu"))
+    m_pad = max(lay.vals.shape[0] for lay in layouts)
+    vals = torch.zeros(2, 3, m_pad, 128)
+    meta = torch.zeros(2, 3, m_pad, 128, dtype=torch.uint16)
+    rbcb = torch.zeros(2, 3, m_pad, dtype=torch.int32)
+    groups = torch.zeros(2, 3, dtype=torch.int32)
+    for i, lay in enumerate(layouts):
+        m = lay.vals.shape[0]
+        vals[i // 3, i % 3, :m] = lay.vals
+        meta[i // 3, i % 3, :m] = lay.meta
+        rbcb[i // 3, i % 3, :m] = lay.rbcb
+        groups[i // 3, i % 3] = lay.n_microrows // microblock.ACC_GROUP
+    stack = microblock.BucketStack(
+        nrows, ncols, window, vals.cuda(), meta.cuda(), rbcb.cuda(),
+        groups.cuda(), int(groups.max()))
+    return stack, mats
+
+
+def phase_bucket_vs_plain():
+    """The bucket kernel against spmv_bucket_reference on small seeded
+    stacks: all six (window, pair) variants, every bucket of both layers
+    (an empty one among them), adding into a non-zero y.  What each launch
+    added is held to spmv_share's bound against the plain version's and
+    against scipy's product."""
+    from csr_tpu_torch.ops import spmv as spmv_op
+
+    worst = 0.0
+    for window in (128, 256):
+        for pair in (1, 2, 4):
+            stack, mats = small_stack(window, pair, seed=100 + window + pair)
+            rng = np.random.default_rng(window + pair)
+            x = rng.standard_normal((2, stack.ncols)).astype(np.float32)
+            y0 = rng.standard_normal((2, stack.nrows)).astype(np.float32)
+            xd, y0d = torch.from_numpy(x).cuda(), torch.from_numpy(y0).cuda()
+            shares, plain = [], []
+            for held in ((0, 1), (1, 2), (2, 0)):
+                hd = torch.tensor(held, dtype=torch.int32, device="cuda")
+                y = spmv_op.spmv_bucket(stack, hd, xd, y0d.clone())
+                y_ref = spmv_op.spmv_bucket_reference(stack, hd, xd, y0d.clone())
+                torch.cuda.synchronize()
+                worst = max(worst, float((y - y_ref).abs().max()))
+                for l, h in enumerate(held):
+                    a = mats[3 * l + h]
+                    added = y[l] - y0d[l]
+                    plain.append(spmv_share(
+                        added, (y_ref[l] - y0d[l]).cpu().numpy(), a, x[l]))
+                    shares.append(spmv_share(added, a.astype(np.float64) @ x[l],
+                                             a, x[l]))
+                    if a.nnz == 0:
+                        assert torch.equal(y[l], y0d[l]), "an empty bucket added"
+            print(f"[12] window {window} pair {pair}: groups "
+                  f"{stack.groups.tolist()}, grid {stack.n_groups} x 2; largest "
+                  f"share of bound vs plain {max(plain):.3g}, vs scipy "
+                  f"{max(shares):.3g}")
+    print(f"[12] bucket kernel vs plain max abs err {worst:.3g}")
+
+
+def phase_ring(tag, csr, a, x, n_shards=4):
+    """The ring main path in the local form: partition, shard, scatter,
+    ring product, collect; against scipy and CSR.mult_vec."""
+    from csr_tpu_torch.kernels import use_kernel
+    from csr_tpu_torch.ops import microblock, spmv as spmv_op
+    from csr_tpu_torch.parallel import mb_ring
+    from csr_tpu_torch.parallel.partition import make_mesh
+
+    assert csr.device.type == "cuda", csr.device
+    t0 = time.perf_counter()
+    host = mb_ring.partition_ring_mb(csr, n_shards)
+    t1 = time.perf_counter()
+    mesh = make_mesh(n_shards)
+    assert mesh.device.type == "cuda" and mesh.group is None
+    rmb = host.shard(mesh)
+    xs = mb_ring.scatter_x(rmb, x, mesh)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    before = spmv_op.bucket_launches
+    y = mb_ring.spmv_ring_mb(rmb, xs, mesh)
+    yg = mb_ring.collect_rows(rmb, y)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    grew = spmv_op.bucket_launches - before
+    assert grew == n_shards, f"bucket launches grew by {grew}, not {n_shards}"
+    assert y.shape == (n_shards, rmb.rows_per_shard) and yg.shape == (csr.nrows,)
+    assert rmb.vals.device.type == "cuda"
+    ref = a.astype(np.float64) @ x
+    share = spmv_share(yg, ref, a, x)
+    with use_kernel("cuda"):
+        y_mv = csr.mult_vec(torch.from_numpy(x).cuda())
+    share_mv = spmv_share(yg, y_mv.cpu().numpy(), a, x)
+    real = int(rmb.groups.sum()) * microblock.ACC_GROUP
+    print(f"[{tag}] ring D={n_shards}: {csr.nrows}x{csr.ncols} nnz {csr.nnz}, "
+          f"window {rmb.window} pair {rmb.pair}, rows/shard {rmb.rows_per_shard}, "
+          f"cols/shard {rmb.cols_per_shard} (splits {rmb.col_offset.tolist()}); "
+          f"stack {rmb.nbytes} B, {rmb.rbcb.shape[2]} micro-rows a bucket, "
+          f"groups {rmb.groups.tolist()}, fill {csr.nnz / max(real, 1) / 128:.4f} "
+          f"of real micro-rows, padding groups {rmb.padding_share:.4f} of the "
+          f"stack; packing {t1 - t0:.2f} s, to the card {t2 - t1:.2f} s, first "
+          f"product {(t3 - t2) * 1e3:.3f} ms; {grew} launches")
+    print(f"[{tag}] ring share of bound vs scipy {share:.3g}, vs CSR.mult_vec "
+          f"{share_mv:.3g}")
+    return rmb, mesh, xs
+
+
+def phase_dist(csr, a, x, n_shards=4):
+    """mb_dist.spmv, spmv_halo and spmv_t (both forms) at the flagship in
+    the local form, the portable ring and dist forms beside them, and
+    entry.dryrun_multichip."""
+    from csr_tpu_torch import entry
+    from csr_tpu_torch.ops import spmv as spmv_op
+    from csr_tpu_torch.parallel import dist, mb_dist, ring
+    from csr_tpu_torch.parallel.partition import make_mesh, partition_rows
+
+    mesh = make_mesh(n_shards)
+    t0 = time.perf_counter()
+    dmb = mb_dist.partition_microblocks(csr, n_shards).shard(mesh)
+    dmbt = mb_dist.partition_microblocks_t(csr, n_shards).shard(mesh)
+    torch.cuda.synchronize()
+    pack = time.perf_counter() - t0
+    before = spmv_op.launches
+    ys = mb_dist.spmv(dmb, x, mesh)
+    yh = mb_dist.spmv_halo(dmb, mb_dist.scatter_x(dmb, x, mesh), mesh)
+    xt = mb_dist.spmv_t(dmbt, ys, mesh)
+    xsc = mb_dist.spmv_t(dmbt, ys, mesh, scatter=True)
+    torch.cuda.synchronize()
+    grew = spmv_op.launches - before
+    assert grew == 4 * n_shards, f"launches grew by {grew}, not {4 * n_shards}"
+    ref = a.astype(np.float64) @ x
+    s_y = spmv_share(mb_dist.collect_rows(dmb, ys), ref, a, x)
+    s_h = spmv_share(mb_dist.collect_rows(dmb, yh), ref, a, x)
+    at = a.T.tocsr()
+    y32 = mb_dist.collect_rows(dmb, ys).cpu().numpy()
+    ref_t = at.astype(np.float64) @ y32
+    s_t = spmv_share(xt, ref_t, at, y32)
+    s_s = spmv_share(mb_dist.collect_cols_t(dmbt, xsc), ref_t, at, y32)
+    print(f"[14] mb_dist D={n_shards} at {csr.nrows}x{csr.ncols}: layouts "
+          f"{dmb.nbytes} + {dmbt.nbytes} B (window {dmb.window} pair {dmb.pair}; "
+          f"transposed {dmbt.window}/{dmbt.pair}), packing {pack:.2f} s; {grew} "
+          f"launches; share of bound vs scipy: spmv {s_y:.3g}, spmv_halo "
+          f"{s_h:.3g}, spmv_t {s_t:.3g}, spmv_t scattered {s_s:.3g}")
+
+    # the kernel against its plain version on every shard's view of the
+    # stacks, as the path launches it (padded layout, out= a row of a
+    # stack); these launches come after the count was read
+    xd = torch.from_numpy(x).cuda()
+    parts = mb_dist._local_products(dmbt, mesh, lambda l: ys[l], dmbt.ncols,
+                                    dmbt.rows_per_shard, dmbt.ncols)
+    s_p = s_pt = err = 0.0
+    for l in range(n_shards):
+        r0, nl = int(dmb.row_offset[l]), int(dmb.nrows_local[l])
+        a_l = a[r0:r0 + nl]
+        y_ref = spmv_op.spmv_reference(
+            dmb._view(mesh, l, dmb.rows_per_shard, dmb.ncols), xd)
+        t_ref = spmv_op.spmv_reference(
+            dmbt._view(mesh, l, dmbt.ncols, dmbt.rows_per_shard), ys[l])
+        torch.cuda.synchronize()
+        assert not ys[l, nl:].any() and not y_ref[nl:].any(), "padding rows"
+        err = max(err, float((ys[l] - y_ref).abs().max()),
+                  float((parts[l] - t_ref).abs().max()))
+        s_p = max(s_p, spmv_share(ys[l, :nl], y_ref[:nl].cpu().numpy(), a_l, x))
+        s_pt = max(s_pt, spmv_share(parts[l], t_ref.cpu().numpy(),
+                                    a_l.T.tocsr(), ys[l, :nl].cpu().numpy()))
+    print(f"[14] kernel vs plain on the {n_shards} + {n_shards} shard views: "
+          f"max abs err {err:.3g}, share of bound {s_p:.3g} (spmv), "
+          f"{s_pt:.3g} (spmv_t)")
+
+    # the portable forms on the card (plain PyTorch), the oracle's role
+    r = ring.partition_ring(csr, n_shards).shard(mesh)
+    yr = ring.spmv_ring(r, ring.scatter_x(r, x, mesh), mesh)
+    d = partition_rows(csr, n_shards).shard(mesh)
+    yd = dist.spmv(d, x, mesh)
+    s_r = spmv_share(dist.collect_rows(r, yr), ref, a, x)
+    s_d = spmv_share(dist.collect_rows(d, yd), ref, a, x)
+    s_dt = spmv_share(dist.spmv_t(d, yd, mesh), ref_t, at, y32)
+    print(f"[14] portable forms: ring.spmv_ring {s_r:.3g}, dist.spmv {s_d:.3g}, "
+          f"dist.spmv_t {s_dt:.3g} of the bound")
+
+    before = spmv_op.launches
+    fn, args = entry.entry()
+    out = fn(*args)
+    assert out.device.type == "cuda" and bool(torch.isfinite(out).all())
+    entry.dryrun_multichip(n_shards)
+    torch.cuda.synchronize()
+    assert spmv_op.launches - before == 1 + n_shards, spmv_op.launches - before
+
+
+def phase_ring_timing(rmb, mesh, xs, csr, card):
+    """Chained ring products against CSR.mult_vec of the unsplit matrix
+    and the ring on the plain version, and the device time by kernel name
+    (chained_times)."""
+    from csr_tpu_torch.kernels import use_kernel
+    from csr_tpu_torch.ops import spmv as spmv_op
+    from csr_tpu_torch.parallel import mb_ring
+    from csr_tpu_torch.utils.profiling import timed_chained
+
+    def ring(rmb_, v):
+        # the row-sharded result as the next column-sharded operand
+        return fit(mb_ring.spmv_ring_mb(rmb_, v, mesh), rmb.cols_per_shard, 1)
+
+    def ring_plain(rmb_, v):
+        kernel = spmv_op.spmv_bucket
+        spmv_op.spmv_bucket = spmv_op.spmv_bucket_reference
+        try:
+            return ring(rmb_, v)
+        finally:
+            spmv_op.spmv_bucket = kernel
+
+    t_ring, t_plain = chained_times("15", rmb, ring, ring_plain, xs, iters=100,
+                                    plain_iters=5, plain_reps=2, profile_iters=10)
+
+    def unsplit(v):
+        y = csr.mult_vec(v)
+        return fit(y / y.abs().max().clamp_min(1e-30), csr.ncols)
+
+    with use_kernel("cuda"):
+        t_mv = timed_chained(unsplit, torch.ones(csr.ncols, device="cuda"), iters=100)
+    print(f"[15] chained product at {csr.nrows}x{csr.ncols}, D={rmb.n_shards}: "
+          f"ring {t_ring * 1e3:.5f} ms, CSR.mult_vec unsplit {t_mv * 1e3:.5f} ms, "
+          f"ring on the plain version {t_plain * 1e3:.5f} ms; card {card}")
+
+
+def step_matrices(rmb, a):
+    """The entries each ring step multiplies: for k in [0, D), those of
+    ``a`` whose column shard is (row shard + k) % D, as scipy CSR over the
+    whole matrix."""
+    coo = a.tocoo()
+    d = rmb.n_shards
+    sr = np.searchsorted(np.cumsum(rmb.nrows_local), coo.row, side="right")
+    sc = np.searchsorted(rmb.col_offset[1:], coo.col, side="right")
+    step = (sc - sr) % d
+    return [sps.csr_matrix((coo.data[step == k],
+                            (coo.row[step == k], coo.col[step == k])),
+                           shape=a.shape) for k in range(d)]
+
+
+def torch_csr(a):
+    """A scipy CSR matrix as a ``torch.sparse_csr_tensor`` on the card, for
+    the library yardsticks only."""
+    a = a.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int32)).cuda(),
+        torch.from_numpy(a.indices.astype(np.int32)).cuda(),
+        torch.from_numpy(a.data.astype(np.float32)).cuda(), size=a.shape,
+        check_invariants=False)
+
+
+def csr_bytes(nnz, nrows, x_elems, y_elems):
+    """Bytes a product must move whatever implements it: the CSR form
+    (8 B an entry, 4 B a row pointer), the operand and the result once."""
+    return 8 * nnz + 4 * (nrows + 1) + 4 * x_elems + 4 * y_elems
+
+
+def phase_bucket_steps(tag, rmb, mesh, xs, a, card):
+    """The D steps of a ring product, each alone on one operand (a step is
+    one launch over all D row shards): the bucket kernel is held to
+    spmv_share's bound against its plain version and against scipy at
+    every step.  Then the kernel, its plain version and the library call
+    on the same entries, the D steps in turn: each one's device time
+    (device_ms), beside the steps' bound, and the kernel's and the
+    library's time a call from the host between two CUDA events.  Taking
+    the steps in turn keeps a step from finding its buckets in L2, which a
+    quarter of the flagship's stack would fit.  Times and the bound are
+    means over the D steps."""
+    from csr_tpu_torch.ops import spmv as spmv_op
+    from csr_tpu_torch.parallel import mb_ring
+    from csr_tpu_torch.utils.profiling import least_ms
+
+    d, stack, held = rmb.n_shards, rmb.stack, mesh.held
+    y = torch.zeros(d, rmb.rows_per_shard, device="cuda")
+    xs_host = xs.cpu().numpy()
+    err = share = plain_share = bound_ms = 0.0
+    libs = []
+    for k, a_k in enumerate(step_matrices(rmb, a)):
+        y_k = spmv_op.spmv_bucket(stack, held[k], xs, y.clone())
+        y_ref = spmv_op.spmv_bucket_reference(stack, held[k], xs, y.clone())
+        torch.cuda.synchronize()
+        err = max(err, float((y_k - y_ref).abs().max()))
+        # the operand is not rotated here: shard s's slice stands in for
+        # column shard (s + k) % D, so rebuild the operand the entries see
+        x_seen = np.zeros(a.shape[1], np.float32)
+        for s in range(d):
+            c0, c1 = rmb.col_offset[(s + k) % d], rmb.col_offset[(s + k) % d + 1]
+            x_seen[c0:c1] = xs_host[s, : c1 - c0]
+        got = mb_ring.collect_rows(rmb, y_k)
+        plain_share = max(plain_share, spmv_share(
+            got, mb_ring.collect_rows(rmb, y_ref).cpu().numpy(), a_k, x_seen))
+        share = max(share, spmv_share(got, a_k.astype(np.float64) @ x_seen,
+                                      a_k, x_seen))
+        libs.append((torch_csr(a_k), torch.from_numpy(x_seen).cuda()))
+        step_ms, by = least_ms(csr_bytes(a_k.nnz, a.shape[0], d * rmb.cols_per_shard,
+                                         2 * a.shape[0]), 2 * a_k.nnz)
+        bound_ms += step_ms / d
+
+    def steps(fn):
+        def product():
+            for k in range(d):
+                fn(stack, held[k], xs, y)
+        return product
+
+    def library():
+        for lib, xd in libs:
+            lib @ xd
+
+    kernel = steps(spmv_op.spmv_bucket)
+    ms = device_ms(kernel, 10) / d
+    plain_ms = device_ms(steps(spmv_op.spmv_bucket_reference), 2) / d
+    lib_ms = device_ms(library, 10) / d
+    call_ms, host = (t / d for t in per_call(kernel, 20))
+    lib_call_ms, lib_host = (t / d for t in per_call(library, 20))
+    print(f"[{tag}] a ring step at {a.shape[0]}x{a.shape[1]} (mean of the {d} "
+          f"steps, {a.nnz / d:.0f} entries over {d} row shards), device time: "
+          f"kernel {ms:.5f} ms ({bound_ms / ms:.4f} of it the bound), plain "
+          f"{plain_ms:.5f} ms, torch.sparse CSR @ x {lib_ms:.5f} ms, bound "
+          f"{bound_ms:.5f} ms by {by}; a call from the host: kernel "
+          f"{call_ms:.5f} ms (enqueue {host:.5f} ms), torch.sparse "
+          f"{lib_call_ms:.5f} ms (enqueue {lib_host:.5f} ms); kernel vs plain "
+          f"max abs err {err:.3g}, share of bound vs plain {plain_share:.3g}, "
+          f"vs scipy {share:.3g}; card {card}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def phase_library(tag, a, layout, x, b, card, iters, mm_iters):
+    """The yardsticks at one shape: the SpMV and SpMM kernels and
+    ``torch.sparse_csr_tensor(...) @ x`` / ``@ B`` on the same products,
+    each over chained calls between CUDA events, beside each product's
+    bound.  The port never calls the library product."""
+    from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
+    from csr_tpu_torch.utils.profiling import least_ms, timed_chained
+
+    lib = torch_csr(a)
+    nrows, ncols = a.shape
+    n = b.shape[1]
+
+    def chained(fn):
+        def step(v):
+            y = fn(v)
+            return fit(y / y.abs().max().clamp_min(1e-30), v.shape[0])
+        return step
+
+    xd = torch.from_numpy(x).cuda()
+    out = {}
+    for name, kern, libfn, v0, its, width in (
+        ("SpMV", lambda v: spmv_op.spmv(layout, v), lambda v: lib @ v, xd, iters, 1),
+        ("SpMM", lambda v: spmm_op.spmm(layout, v), lambda v: lib @ v, b, mm_iters, n),
+    ):
+        t_lib = timed_chained(chained(libfn), v0, iters=its)
+        t_kern = timed_chained(chained(kern), v0, iters=its)
+        t_kern = min(t_kern, timed_chained(chained(kern), v0, iters=its))
+        t_lib = min(t_lib, timed_chained(chained(libfn), v0, iters=its))
+        got, want = kern(v0), libfn(v0)
+        torch.cuda.synchronize()
+        scale = float(want.abs().max())
+        gap = float((got - want).abs().max())
+        assert gap <= 1e-3 * max(scale, 1.0), (name, gap, scale)
+        bound_ms, by = least_ms(
+            csr_bytes(a.nnz, nrows, ncols * width, nrows * width), 2 * a.nnz * width)
+        out[name] = (t_kern * 1e3, t_lib * 1e3, bound_ms, by)
+        print(f"[{tag}] {name} at {nrows}x{ncols} (nnz {a.nnz}"
+              f"{'' if width == 1 else f', B x {width}'}): kernel "
+              f"{t_kern * 1e3:.5f} ms, torch.sparse CSR {t_lib * 1e3:.5f} ms per "
+              f"chained product, bound {bound_ms:.5f} ms by {by} (kernel "
+              f"{bound_ms / (t_kern * 1e3):.4f} of it); kernel vs library max abs "
+              f"diff {gap:.3g} of |y| up to {scale:.4g}; card {card}")
+    return out
 
 
 def main():
@@ -658,11 +1111,37 @@ def main():
                                                bd_fl, card)
     phase_densify_threshold(card)
 
+    # the ring main path (local form, D = 4) at both shapes; the bucket
+    # kernel's count is read right after it
+    phase_bucket_vs_plain()
+    spmv_op.bucket_launches = 0
+    fl_ring = phase_ring("13", fl_csr, fl_a, fl[5])
+    ml_ring = phase_ring("13", ml_csr, ml_a, ml[5])
+    bucket_launches = spmv_op.bucket_launches
+    assert bucket_launches == 8, bucket_launches
+    phase_dist(fl_csr, fl_a, fl[5])
+    phase_ring_timing(*fl_ring, fl_csr, card)
+    phase_ring_timing(*ml_ring, ml_csr, card)
+    bucket = phase_bucket_steps("15", *fl_ring, fl_a, card)
+    bucket_ml = phase_bucket_steps("15", *ml_ring, ml_a, card)
+    bucket["max_abs_err"] = max(bucket["max_abs_err"], bucket_ml["max_abs_err"])
+    del fl_ring, ml_ring
+
+    lib_fl = phase_library("16", fl_a, cuda_k._cached_layout(fl_csr), fl[5],
+                           bd_fl, card, iters=300, mm_iters=20)
+    phase_library("16", ml_a, cuda_k._cached_layout(ml_csr), ml[5], bd_ml, card,
+                  iters=100, mm_iters=10)
+
+    def yardsticks(name):
+        _, library_ms, bound_ms, by = lib_fl[name]
+        return dict(bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
+
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=launches, max_abs_err=max_err, ms=ms,
-             plain_ms=plain_ms),
+             plain_ms=plain_ms, **yardsticks("SpMV")),
         dict(SPMM_KERNEL, launches=spmm_launches, max_abs_err=spmm_err,
-             ms=spmm_ms, plain_ms=spmm_plain_ms),
+             ms=spmm_ms, plain_ms=spmm_plain_ms, **yardsticks("SpMM")),
+        dict(BUCKET_KERNEL, launches=bucket_launches, **bucket),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

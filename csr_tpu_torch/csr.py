@@ -3,7 +3,10 @@ Compressed sparse row matrices on PyTorch (counterpart of
 :mod:`csr_tpu.csr`).
 
 The three data arrays (``rowptrs``, ``colinds``, ``values``) are torch
-tensors on one explicit ``device``.  A matrix built from numpy arrays
+tensors on one ``device``.  Tensor inputs keep their device; a matrix
+built from numpy or scipy data with no ``device`` named lies on
+:func:`csr_tpu_torch.kernels.default_device`: the card when there is
+one, the CPU only where there is none.  A matrix built from numpy arrays
 also keeps them as ``_host``: the micro-block packing of the ``cuda``
 kernel runs on the host, and reading the tensors back from the card
 would cost a copy.
@@ -26,7 +29,7 @@ import torch
 
 from . import structure
 from .dtypes import COLIND_DTYPE, INT32_MAX, VALUE_DTYPE, ptr_dtype
-from .kernels import get_kernel, releasing
+from .kernels import default_device, get_kernel, releasing
 
 _log = logging.getLogger(__name__)
 
@@ -80,7 +83,7 @@ class CSR:
 
         tensors = [a for a in (rps, cis, vs) if isinstance(a, torch.Tensor)]
         if device is None:
-            device = tensors[0].device if tensors else "cpu"
+            device = tensors[0].device if tensors else default_device()
         device = torch.device(device)
         # keep the host arrays when the data arrived as numpy: packing for
         # the cuda kernel runs on the host
@@ -152,8 +155,10 @@ class CSR:
                 empty matrix.
             values(bool or torch.dtype): whether it has values, or their
                 dtype (default float32).
-            device: where the tensors live (default CPU).
+            device: where the tensors live (default
+                :func:`~csr_tpu_torch.kernels.default_device`).
         """
+        device = default_device() if device is None else device
         rps = np.zeros(nrows + 1, np.int64)
         if row_nnzs is not None:
             row_nnzs = np.asarray(row_nnzs)
@@ -180,7 +185,8 @@ class CSR:
             shape(tuple): the shape, or ``None`` to infer it.
             rpdtype(numpy.dtype): row-pointer dtype, or ``None`` for the
                 automatic policy (int32, widened past INT32_MAX entries).
-            device: where the tensors live (default CPU).
+            device: where the tensors live (default
+                :func:`~csr_tpu_torch.kernels.default_device`).
         """
         def host(a):
             return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
@@ -214,7 +220,8 @@ class CSR:
     @classmethod
     def from_scipy(cls, mat, copy=True, *, device=None):
         """A matrix from a scipy sparse matrix.  The data is copied to
-        ``device``; ``copy`` is accepted for API compatibility."""
+        ``device`` (default :func:`~csr_tpu_torch.kernels.default_device`);
+        ``copy`` is accepted for API compatibility."""
         import scipy.sparse as sps
 
         if not sps.issparse(mat):

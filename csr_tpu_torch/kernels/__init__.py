@@ -17,7 +17,7 @@ Available kernels:
     SciPy host oracle, for tests and benchmarks only.
 
 Selection: the ``CSR_KERNEL`` environment variable, else ``cuda`` when
-``torch.cuda.is_available()``, else ``torch``.  The JAX package's and the
+:func:`default_device` is a card, else ``torch``.  The JAX package's and the
 original library's names are aliases: ``xla``/``numba`` for ``torch``,
 ``pallas``/``mkl`` for ``cuda``.
 """
@@ -36,7 +36,17 @@ from importlib import import_module
 import torch as _torch
 
 kernels = {}
-__all__ = ["releasing", "set_kernel", "use_kernel", "get_kernel", "trace"]
+__all__ = ["default_device", "releasing", "set_kernel", "use_kernel",
+           "get_kernel", "trace"]
+
+
+def default_device() -> _torch.device:
+    """Where the package works when the caller names no device and hands
+    over no tensor: the card when ``torch.cuda.is_available()``, the CPU
+    only where there is none.  The constructors of
+    :class:`csr_tpu_torch.CSR`, :func:`csr_tpu_torch.parallel.partition.make_mesh`
+    and the default kernel all follow it."""
+    return _torch.device("cuda" if _torch.cuda.is_available() else "cpu")
 
 # Handle-lifecycle tracing, enabled by the CSR_TPU_TRACE environment
 # variable; kernels call ``trace()`` on handle creation and release and on
@@ -145,7 +155,7 @@ def _initialize(name=None):
     if not name:
         name = os.environ.get("CSR_KERNEL")
     if not name:
-        name = "cuda" if _torch.cuda.is_available() else "torch"
+        name = "cuda" if default_device().type == "cuda" else "torch"
     __cached_default = get_kernel(name)
 
 

@@ -2,8 +2,8 @@
 ctypes bindings for the native host CSR utilities (counterpart of
 :mod:`csr_tpu.native`).
 
-The library is the JAX package's ``csr_host.cpp``, built by
-:mod:`csr_tpu_torch.native.build`.  It speeds up host-side construction
+The library is this package's ``native/csr_host.cpp`` (a copy of the JAX
+package's source), built by :mod:`csr_tpu_torch.native.build`.  It speeds up host-side construction
 and micro-block packing on numpy buffers.  Every caller has a numpy
 fallback, so a missing toolchain costs speed only; ``CSR_TPU_NO_NATIVE``
 disables the library.

@@ -4,7 +4,8 @@ Build and bind the CUDA kernels of ``csrc/``.
 Each source ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a``
 into its own shared library with a plain C entry ``csrt_<name>``, at
 first use, into this package's git-ignored ``_build/`` directory; the
-file name carries a hash of the source and flags.  The library is loaded
+file name carries a hash of the source, of the ``csrc/*.cuh`` headers it
+includes and of the flags.  The library is loaded
 with :mod:`ctypes`; pointers and the stream are passed as ``c_void_p``
 from ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
 
@@ -36,6 +37,10 @@ ENTRIES = {
     "spmv_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp],
     # vals, meta, rbcb, b, c, n_groups, shift, nrows, n, stream
     "spmm_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _vp],
+    # vals, meta, rbcb, held, groups, n_layers, n_buckets, bucket_microrows,
+    # x, x_stride, y, y_stride, n_groups, shift, nrows, stream
+    "spmv_bucket": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _vp, _i64, _vp,
+                    _i64, _i64, _i32, _i32, _vp],
 }
 
 #: loaded libraries by kernel name
@@ -97,3 +102,16 @@ def spmm_microblock(vals, meta, rbcb, b, c, n_groups: int, shift: int,
     _launch("spmm_microblock", vals.data_ptr(), meta.data_ptr(),
             rbcb.data_ptr(), b.data_ptr(), c.data_ptr(), n_groups, shift,
             nrows, b.shape[1], torch.cuda.current_stream(c.device).cuda_stream)
+
+
+def spmv_bucket(vals, meta, rbcb, held, groups, x, y, n_groups: int,
+                shift: int, nrows: int) -> None:
+    """Launch the bucket-selecting SpMV kernel on the current stream:
+    ``y[l] += A[l, held[l]] @ x[l]`` for every layer ``l`` of the stack
+    ``vals`` (L, B, M, 128), over a grid of ``n_groups`` groups a layer.
+    The caller has checked the tensors."""
+    n_layers, n_buckets, m = rbcb.shape
+    _launch("spmv_bucket", vals.data_ptr(), meta.data_ptr(), rbcb.data_ptr(),
+            held.data_ptr(), groups.data_ptr(), n_layers, n_buckets, m,
+            x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), n_groups,
+            shift, nrows, torch.cuda.current_stream(y.device).cuda_stream)

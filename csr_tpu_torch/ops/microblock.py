@@ -122,6 +122,72 @@ def check_on_card(layout: MicroBlockLayout) -> None:
                          f" number of {ACC_GROUP}-micro-row groups <= {m_pad}")
 
 
+def real_microrows(meta: np.ndarray, window: int) -> np.ndarray:
+    """For every layout of a stack ``meta`` (..., M, 128) of numpy uint16:
+    the micro-rows up to the last one that holds an entry (its count is
+    ``epos`` of slot 127), rounded up to whole groups of ``ACC_GROUP``.
+    Past that count a layout is zero padding, which a product may skip."""
+    shift = 7 if window == LANE else 8
+    has = ((meta[..., LANE - 1].astype(np.int32) >> shift) & 127) > 0
+    m = has.shape[-1]
+    last = np.where(has.any(-1), m - np.argmax(has[..., ::-1], -1), 0)
+    return (-(-last // ACC_GROUP) * ACC_GROUP).astype(np.int64)
+
+
+@dataclass
+class BucketStack:
+    """``L`` layers of ``B`` micro-block layouts of one shape, stacked and
+    zero-padded to ``M`` micro-rows each: what
+    :func:`csr_tpu_torch.ops.spmv.spmv_bucket` multiplies one bucket a
+    layer of."""
+
+    nrows: int  # rows of every layout
+    ncols: int  # columns of every layout
+    window: int
+    vals: torch.Tensor  # (L, B, M, 128) f32
+    meta: torch.Tensor  # (L, B, M, 128) u16
+    rbcb: torch.Tensor  # (L, B, M) i32
+    groups: torch.Tensor  # (L, B) i32: real_microrows // ACC_GROUP
+    n_groups: int  # the largest entry of ``groups`` (the grid's width)
+
+    @property
+    def device(self) -> torch.device:
+        return self.vals.device
+
+    @property
+    def n_layers(self) -> int:
+        return self.rbcb.shape[0]
+
+    @property
+    def n_buckets(self) -> int:
+        return self.rbcb.shape[1]
+
+    @property
+    def epos_shift(self) -> int:
+        return 7 if self.window == LANE else 8
+
+
+def check_stack_on_card(stack: BucketStack) -> None:
+    """Raise ValueError unless the stack's arrays are what the bucket
+    kernel reads (see :func:`check_on_card`)."""
+    dev = stack.device
+    shape = tuple(stack.rbcb.shape)
+    if len(shape) != 3 or shape[2] % ACC_GROUP:
+        raise ValueError(f"rbcb: expected (L, B, M) with M a multiple of "
+                         f"{ACC_GROUP}, got {shape}")
+    _check("vals", stack.vals, torch.float32, (*shape, LANE), dev)
+    _check("meta", stack.meta, torch.uint16, (*shape, LANE), dev)
+    _check("rbcb", stack.rbcb, torch.int32, shape, dev)
+    _check("groups", stack.groups, torch.int32, shape[:2], dev)
+    if stack.vals.data_ptr() % 16 or stack.meta.data_ptr() % 8:
+        raise ValueError("vals must be 16 B aligned and meta 8 B aligned")
+    if not 0 <= stack.n_groups * ACC_GROUP <= shape[2]:
+        raise ValueError(f"n_groups {stack.n_groups} does not fit "
+                         f"{shape[2]} micro-rows")
+    if shape[0] > 65535:
+        raise ValueError(f"{shape[0]} layers exceed the grid's second axis")
+
+
 def in_range(nrows: int, ncols: int, window: int) -> bool:
     """Whether ``rbcb`` can address the matrix at this window width."""
     return -(-nrows // LANE) <= MAX_RB and -(-ncols // window) <= MAX_CB

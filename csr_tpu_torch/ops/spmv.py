@@ -10,16 +10,26 @@ Micro-block SpMV (counterpart of :func:`csr_tpu.ops.spmv.spmv`).
 * :func:`spmv_reference` is the plain PyTorch version of the same
   micro-block algorithm, on the same layout arrays.
 * :data:`launches` counts kernel launches.
+* :func:`spmv_bucket` is the wrapper of the bucket-selecting kernel
+  ``csrc/spmv_bucket.cu`` (the port of
+  ``csr_tpu/ops/spmv.py:_spmv_call_bucket``): over a
+  :class:`~csr_tpu_torch.ops.microblock.BucketStack` it adds
+  ``A[l, held[l]] @ x[l]`` into ``y[l]`` for every layer ``l``, the bucket
+  index read on the device.  :func:`spmv_bucket_reference` is its plain
+  PyTorch version and :data:`bucket_launches` its launch count.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .microblock import ACC_GROUP, LANE, MicroBlockLayout, check_on_card
+from .microblock import (ACC_GROUP, LANE, BucketStack, MicroBlockLayout,
+                         check_on_card, check_stack_on_card)
 
 #: number of launches of the CUDA kernel (plain-version calls not counted)
 launches = 0
+#: number of launches of the bucket-selecting CUDA kernel
+bucket_launches = 0
 
 
 def spmv_reference(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
@@ -54,9 +64,13 @@ def spmv_reference(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
     return y[: layout.nrows]
 
 
-def spmv(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
+def spmv(layout: MicroBlockLayout, x: torch.Tensor,
+         out: torch.Tensor | None = None) -> torch.Tensor:
     """``A @ x`` for a micro-block matrix; returns f32 of length
-    ``nrows`` on the layout's device.  ``x`` must lie on that device."""
+    ``nrows`` on the layout's device.  ``x`` must lie on that device.
+    With ``out`` (f32, contiguous, ``nrows`` long, on that device) the
+    product is added into it and it is returned: a caller that stacks
+    the products of several layouts hands in rows of one zeroed tensor."""
     global launches
     dev = layout.device
     if x.shape != (layout.ncols,) or x.device != dev:
@@ -64,14 +78,25 @@ def spmv(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
             f"x: expected shape ({layout.ncols},) on {dev}, got "
             f"{tuple(x.shape)} on {x.device}"
         )
+    if out is not None and (
+        out.shape != (layout.nrows,) or out.device != dev
+        or out.dtype != torch.float32 or not out.is_contiguous()
+    ):
+        raise ValueError(
+            f"out: expected contiguous float32 ({layout.nrows},) on {dev}, "
+            f"got {out.dtype} {tuple(out.shape)} on {out.device}"
+        )
     if dev.type == "cpu":
-        return spmv_reference(layout, x)
+        y = spmv_reference(layout, x)
+        return y if out is None else out.add_(y)
     if dev.type != "cuda":
         raise ValueError(f"spmv runs on CPU or CUDA tensors, not {dev}")
 
     check_on_card(layout)
     x = x.to(torch.float32).contiguous()
-    y = torch.zeros(layout.nrows, dtype=torch.float32, device=dev)
+    y = out
+    if y is None:
+        y = torch.zeros(layout.nrows, dtype=torch.float32, device=dev)
     if layout.n_microrows == 0:
         return y
     from . import _cuda
@@ -82,4 +107,74 @@ def spmv(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
             layout.n_microrows // ACC_GROUP, layout.epos_shift, layout.nrows,
         )
     launches += 1
+    return y
+
+
+def _check_bucket_operands(stack: BucketStack, held, x, y) -> None:
+    dev, n_layers = stack.device, stack.n_layers
+    for name, t, dtype, shape in (
+        ("held", held, torch.int32, (n_layers,)),
+        ("x", x, torch.float32, (n_layers, stack.ncols)),
+        ("y", y, torch.float32, (n_layers, stack.nrows)),
+    ):
+        if t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}"
+            )
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} must be contiguous along its last axis")
+
+
+def spmv_bucket_reference(stack: BucketStack, held: torch.Tensor,
+                          x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``y[l] += A[l, held[l]] @ x[l]`` in plain PyTorch: ``held`` is read
+    on the host, and :func:`spmv_reference` runs on a view of each held
+    bucket, over the bucket's ``groups`` count of micro-row groups (what
+    the kernel's grid covers of it).  A held index outside the stack's
+    buckets adds nothing, as in the kernel.  Returns ``y``."""
+    _check_bucket_operands(stack, held, x, y)
+    groups = stack.groups.tolist()
+    for l, h in enumerate(held.tolist()):
+        if not 0 <= h < stack.n_buckets:
+            continue
+        view = MicroBlockLayout(
+            stack.nrows, stack.ncols, 0, groups[l][h] * ACC_GROUP,
+            stack.vals[l, h], stack.meta[l, h], stack.rbcb[l, h],
+            stack.window,
+        )
+        y[l] += spmv_reference(view, x[l])
+    return y
+
+
+def spmv_bucket(stack: BucketStack, held: torch.Tensor, x: torch.Tensor,
+                y: torch.Tensor) -> torch.Tensor:
+    """``y[l] += A[l, held[l]] @ x[l]`` for every layer ``l`` of a stack of
+    micro-block layouts; returns ``y``.
+
+    ``held`` is (L,) int32, ``x`` (L, ncols) f32 and ``y`` (L, nrows) f32,
+    all on the stack's device.  On CUDA tensors one launch of
+    ``csrc/spmv_bucket.cu`` serves all layers: each block reads its
+    layer's ``held`` entry from device memory, so the host never reads it
+    and no bucket is copied.  On CPU tensors :func:`spmv_bucket_reference`
+    runs.  A build or launch failure raises."""
+    global bucket_launches
+    dev = stack.device
+    if dev.type == "cpu":
+        return spmv_bucket_reference(stack, held, x, y)
+    if dev.type != "cuda":
+        raise ValueError(f"spmv_bucket runs on CPU or CUDA tensors, not {dev}")
+    _check_bucket_operands(stack, held, x, y)
+    check_stack_on_card(stack)
+    if x.data_ptr() % 4 or y.data_ptr() % 4:
+        raise ValueError("x and y must be 4 B aligned")
+    if stack.n_groups == 0 or stack.n_layers == 0:
+        return y
+    from . import _cuda
+
+    with torch.cuda.device(dev):
+        _cuda.spmv_bucket(stack.vals, stack.meta, stack.rbcb, held,
+                          stack.groups, x, y, stack.n_groups,
+                          stack.epos_shift, stack.nrows)
+    bucket_launches += 1
     return y

@@ -5,12 +5,16 @@ Checkpoint / serialization (counterpart of
 The npz field names are the JAX package's, so a file written by
 ``csr_tpu.utils.serialization.save_npz`` loads here and the reverse.
 :func:`from_arrays` builds a matrix from numpy arrays, for instance those
-of a ``csr_tpu.CSR``.
+of a ``csr_tpu.CSR``; :func:`parallel_from_arrays` does the same for the
+partitioned forms of :mod:`csr_tpu_torch.parallel`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+import torch
 
 from csr_tpu_torch.csr import CSR
 
@@ -21,6 +25,28 @@ def from_arrays(nrows, ncols, rowptrs, colinds, values, device=None) -> CSR:
     return CSR(nrows, ncols, len(colinds), np.asarray(rowptrs),
                np.asarray(colinds), None if values is None else np.asarray(values),
                device=device)
+
+
+def parallel_from_arrays(cls, fields: dict):
+    """A partitioned form ``cls`` (``DistCSR``, ``RingCSR``,
+    ``DistMicroBlock``, ``DistMicroBlockT`` or ``RingMicroBlock`` of
+    :mod:`csr_tpu_torch.parallel`) from the same-named fields of its
+    ``csr_tpu.parallel`` counterpart, given as numpy arrays and numbers:
+    the stacked arrays become host tensors (``.shard(mesh)`` places
+    them), the per-shard offsets stay numpy, and what only the port holds
+    is derived from them."""
+    kw = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in fields:
+            continue
+        v = fields[f.name]
+        if f.name in cls.TENSORS:
+            kw[f.name] = torch.from_numpy(np.require(v, requirements="CW"))
+        elif np.ndim(v):
+            kw[f.name] = np.asarray(v)
+        else:
+            kw[f.name] = int(v)
+    return cls(**kw)
 
 
 def to_state_dict(csr: CSR) -> dict:

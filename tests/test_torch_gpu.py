@@ -12,6 +12,8 @@ import torch
 from csr_tpu_torch import CSR
 from csr_tpu_torch.kernels import use_kernel
 from csr_tpu_torch.ops import microblock as mb, spmm, spmv
+from csr_tpu_torch.parallel import dist, mb_dist, mb_ring, ring
+from csr_tpu_torch.parallel.partition import make_mesh, partition_rows
 
 from torch_util import (Scipy, assert_product_close, cuda_device,  # noqa: F401
                         random_matrix)
@@ -142,3 +144,99 @@ def test_slice_on_card(cuda_device):
     assert_spmv_close(y.cpu().numpy(), a64 @ x, c, x)
     assert_spmv_close(yt.cpu().numpy(), a64.T @ xt, Scipy(a.T.tocsr()), xt)
     assert_spmv_close(y64.cpu().numpy(), a64 @ x, c, x)
+
+
+def test_default_device_is_the_card(cuda_device):
+    """A matrix built from numpy or scipy data with no device named lies
+    on the card, and so does a mesh; tensors keep their own device."""
+    a = random_matrix(60, 80, 0.1, seed=1, big_group=False)
+    assert CSR.from_scipy(a).device.type == "cuda"
+    assert CSR(60, 80, a.nnz, a.indptr, a.indices, a.data).device.type == "cuda"
+    coo = a.tocoo()
+    assert CSR.from_coo(coo.row, coo.col, coo.data, a.shape).device.type == "cuda"
+    assert CSR.empty(4, 5).device.type == "cuda"
+    assert CSR.from_scipy(a, device="cpu").device.type == "cpu"
+    on_cpu = CSR(60, 80, a.nnz, torch.from_numpy(a.indptr.astype(np.int64)),
+                 torch.from_numpy(a.indices), torch.from_numpy(a.data))
+    assert on_cpu.device.type == "cpu"
+    assert make_mesh(2).device.type == "cuda"
+    y = CSR.from_scipy(a).mult_vec(np.ones(80, np.float32))
+    assert y.device.type == "cuda"
+
+
+@pytest.mark.parametrize("window", [128, 256])
+def test_bucket_kernel_matches_reference_on_card(window, cuda_device):
+    """Every ring step's ``held`` row (so every bucket of every row shard,
+    empty ones included) through the kernel and its plain version, adding
+    into a non-zero ``y``; one launch a step."""
+    top = random_matrix(300, 1024, 0.04, seed=21)
+    import scipy.sparse as sps
+    low = sps.hstack([random_matrix(300, 128, 0.5, seed=22, big_group=False),
+                      sps.csr_matrix((300, 896), dtype=np.float32)])
+    a = sps.vstack([top, low]).tocsr()
+    D = 4
+    mesh = make_mesh(D)
+    rmb = mb_ring.partition_ring_mb(CSR.from_scipy(a), D, window=window).shard(mesh)
+    assert rmb.vals.device.type == "cuda" and int(rmb.groups.min()) == 0
+    rng = np.random.default_rng(window)
+    x = torch.from_numpy(rng.uniform(-1, 1, (D, rmb.cols_per_shard))
+                         .astype(np.float32)).to(cuda_device)
+    y0 = torch.from_numpy(rng.uniform(-1, 1, (D, rmb.rows_per_shard))
+                          .astype(np.float32)).to(cuda_device)
+    for k in range(D):
+        before = spmv.bucket_launches
+        y = spmv.spmv_bucket(rmb.stack, mesh.held[k], x, y0.clone())
+        y_ref = spmv.spmv_bucket_reference(rmb.stack, mesh.held[k], x, y0.clone())
+        torch.cuda.synchronize()
+        assert spmv.bucket_launches == before + 1
+        # f32 sums in another order: rtol 1e-4 of |y| up to ~20, as the
+        # SpMV bound's relative part
+        torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    out = spmv.spmv_bucket(rmb.stack, torch.full((D,), D, dtype=torch.int32,
+                                                 device=cuda_device), x, y0.clone())
+    assert torch.equal(out, y0), "a held index past the buckets added something"
+    with pytest.raises(ValueError):
+        spmv.spmv_bucket(rmb.stack, mesh.held[0].cpu(), x, y0.clone())
+
+
+@pytest.mark.parametrize("n_shards", [1, 4, 7])
+def test_ring_and_dist_on_card(n_shards, cuda_device):
+    """The ring and ``mb_dist`` in the local form on the card, against
+    scipy and the portable forms; the launch counts the schedules predict."""
+    a = random_matrix(900, 1100, 0.04, seed=11)
+    csr = CSR.from_scipy(a)
+    x = np.random.default_rng(3).uniform(-1, 1, 1100).astype(np.float32)
+    expect = a.astype(np.float64) @ x
+    mesh = make_mesh(n_shards)
+    D = n_shards
+
+    rmb = mb_ring.partition_ring_mb(csr, D).shard(mesh)
+    before = spmv.bucket_launches
+    y = mb_ring.spmv_ring_mb(rmb, mb_ring.scatter_x(rmb, x, mesh), mesh)
+    assert spmv.bucket_launches == before + D
+    assert y.device.type == "cuda" and y.shape == (D, rmb.rows_per_shard)
+    assert_spmv_close(mb_ring.collect_rows(rmb, y).cpu().numpy(), expect,
+                      Scipy(a), x)
+    r = ring.partition_ring(csr, D).shard(mesh)
+    yr = ring.spmv_ring(r, ring.scatter_x(r, x, mesh), mesh)
+    assert_spmv_close(dist.collect_rows(r, yr).cpu().numpy(), expect, Scipy(a), x)
+
+    dmb = mb_dist.partition_microblocks(csr, D).shard(mesh)
+    dmbt = mb_dist.partition_microblocks_t(csr, D).shard(mesh)
+    before = spmv.launches
+    ys = mb_dist.spmv(dmb, x, mesh)
+    yh = mb_dist.spmv_halo(dmb, mb_dist.scatter_x(dmb, x, mesh), mesh)
+    xt = mb_dist.spmv_t(dmbt, ys, mesh)
+    xs = mb_dist.spmv_t(dmbt, ys, mesh, scatter=True)
+    assert spmv.launches == before + 4 * D
+    for got in (ys, yh):
+        assert_spmv_close(mb_dist.collect_rows(dmb, got).cpu().numpy(), expect,
+                          Scipy(a), x)
+    at = a.T.tocsr()
+    for got in (xt, mb_dist.collect_cols_t(dmbt, xs)):
+        assert_spmv_close(got.cpu().numpy(), at.astype(np.float64) @ (a @ x),
+                          Scipy(at), a @ x)
+    d = partition_rows(csr, D).shard(mesh)
+    np.testing.assert_allclose(
+        dist.collect_rows(d, dist.spmv(d, x, mesh)).cpu().numpy(), expect,
+        rtol=1e-4, atol=1e-3)

@@ -47,3 +47,39 @@ class Scipy:
 
     def to_scipy(self):
         return self.m
+
+
+def both_csr(a, structure_only=False):
+    """The scipy matrix ``a`` as a ``csr_tpu.CSR`` and as a
+    ``csr_tpu_torch.CSR`` on the CPU (values dropped with
+    ``structure_only``)."""
+    from csr_tpu import CSR as RefCSR
+    from csr_tpu_torch import CSR
+
+    vals = None if structure_only else a.data
+    return (RefCSR(a.shape[0], a.shape[1], a.nnz, a.indptr, a.indices, vals),
+            CSR(a.shape[0], a.shape[1], a.nnz, a.indptr, a.indices, vals,
+                device="cpu"))
+
+
+def fields_of(ref):
+    """The fields of a ``csr_tpu.parallel`` dataclass as numpy arrays and
+    numbers, for ``parallel_from_arrays``."""
+    import dataclasses
+
+    return {f.name: np.asarray(getattr(ref, f.name))
+            for f in dataclasses.fields(ref)}
+
+
+def assert_same_partition(port, ref, tensors):
+    """Every field of the JAX dataclass equals the port's, the stacked
+    arrays byte for byte."""
+    for name, want in fields_of(ref).items():
+        got = getattr(port, name)
+        if name in tensors:
+            got = got.numpy()
+            assert got.dtype == want.dtype, (name, got.dtype, want.dtype)
+            assert got.shape == want.shape, (name, got.shape, want.shape)
+            assert got.tobytes() == want.tobytes(), name
+        else:
+            np.testing.assert_array_equal(np.asarray(got), want, err_msg=name)
