@@ -21,8 +21,13 @@ built with no device named and must land on the card.
    layouts; kernel and plain-version times at the flagship over chained
    iterations timed with CUDA events; a ``torch.profiler`` view of 20
    chained iterations; each main-path layout's times alone.
-6. The SpMM kernel against its plain version (``spmm_reference``) on the
-   card: the six (window, pair) variants at n = 1, 50 and 300.
+6. The SpMM kernel against both plain versions (``spmm_reference``, slot
+   by slot, and ``spmm_regrouped``, the kernel's algorithm) on the card:
+   the six (window, pair) variants at n = 1, 3, 50, 64, 256, 300 and 1100
+   (every lane mapping, padded copies, one to nine column tiles), a
+   micro-row at the 127-entry cap, inf in the rows of B that only padding
+   slots point to, a misaligned B, the column tiles split by force, and
+   a 128-row window whose entries sit in one row.
 7. SpMM main path at the flagship: ``CSR.mult_dense`` with a seeded B of
    32768 x 256, against scipy on a column slice.
 8. The same at the MovieLens-25M shape with B of 59,047 x 50 (R Q of an
@@ -30,11 +35,11 @@ built with no device named and must land on the card.
 9. ``CSR.multiply`` and ``multiply(transpose=True)`` of two seeded 8192^2
    matrices with 20 entries per row: B densifies, A runs the SpMM kernel
    on an 8192-wide operand; against scipy's product.
-10. The SpMM kernel against its plain version at the main path's shapes;
-    kernel and plain-version times at the flagship over chained
-    iterations (CUDA events) and the kernel's device time by
-    ``torch.profiler``.
-11. The densify threshold: at 8192^2 with B 50, 256 and 8192 wide, the
+10. The SpMM kernel against both plain versions at the main path's
+    shapes; kernel and plain-version times at the flagship and at the
+    MovieLens-25M shape over chained iterations (CUDA events) and the
+    kernel's device time by ``torch.profiler``.
+11. The densify threshold: at 8192^2 with B 50, 128, 256 and 8192 wide, the
     SpMM kernel against the densified f32 ``torch.matmul`` (TF32 off),
     alone and as whole ``CSR.mult_dense`` calls, at densities 1e-3 ..
     3e-1; the route the port picks must cost at most 1.5 times the faster
@@ -65,10 +70,12 @@ built with no device named and must land on the card.
     library call on each step's entries, all by ``torch.profiler``.
 16. The yardsticks: ``torch.sparse_csr_tensor(...) @ x`` and ``@ B`` on
     the same products at both shapes (timed only; the port never calls
-    them), and each kernel's bound, the least time the card could take:
-    the CSR form (8 B an entry plus row pointers), the operand and the
-    result moved once at the published bandwidth, or 2 nnz n operations at
-    the published f32 rate, whichever is larger.
+    them), over chained products and as device time beside the kernels'
+    and the plain versions' device time, the rate of SpMM's gather of
+    nnz n 4 B of B's rows, and each kernel's bound, the least time the
+    card could take: the CSR form (8 B an entry plus row pointers), the
+    operand and the result moved once at the published bandwidth, or
+    2 nnz n operations at the published f32 rate, whichever is larger.
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
@@ -83,6 +90,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -189,25 +197,62 @@ def per_call(fn, iters=50):
     return start.elapsed_time(end) / iters, host
 
 
-def device_ms(fn, calls=10):
+def device_ms(fn, calls=10, tries=5):
     """Milliseconds of device time per call of ``fn``: the time of every
-    kernel and copy ``torch.profiler`` saw on the card over ``calls`` calls
-    (after one warm-up call), so the host's pace is left out.  The same
-    clock for a hand-written kernel, its plain version and a library call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    kernel and copy ``torch.profiler`` saw on the card over ``calls`` calls,
+    so the host's pace is left out.  The same clock for a hand-written
+    kernel, its plain version and a library call.
 
+    The profiler can lose records (late in a long process, mostly those of
+    a window's first milliseconds), so the window opens with 20 ms of calls
+    that are not counted: only records that start after a mark set behind
+    them are.  Every call launches the same kernels, so a window counts
+    only if it kept a whole number of records a call of every kernel, and
+    if their time is no more than the counted calls took on the host's
+    clock.  A window that fails either test is taken again, ``tries`` times
+    in all; then this raises.  Nothing is extrapolated from a window with
+    records missing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mark = "device_ms.counted"
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    # device events only: a CPU op's entry repeats its kernels' time
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    assert total > 0, "the profiler saw no device time"
-    return total / calls / 1e3
+    why = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.02:
+                fn()
+            torch.cuda.synchronize()
+            with record_function(mark):
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        start = min(e.time_range.start for e in events if e.name == mark)
+        # device events only: a CPU op's entry repeats its kernels' time,
+        # and so does the mark's own range on the device's timeline
+        times = {}
+        for e in events:
+            if (e.device_type == DeviceType.CUDA and e.name != mark
+                    and e.time_range.start >= start):
+                times.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        total_us = sum(map(sum, times.values()))
+        partial = [f"{len(us)} of {name[:40]}" for name, us in times.items()
+                   if len(us) % calls]
+        if not times:
+            why.append("no device record")
+        elif partial:
+            why.append(f"records kept over {calls} calls: {', '.join(partial)}")
+        elif total_us > 1.02 * wall_us:
+            why.append(f"{total_us:.0f} us on the device in {wall_us:.0f} us")
+        else:
+            return total_us / calls / 1e3
+        print(f"[device_ms] window taken again ({why[-1]})")
+    raise RuntimeError(f"device_ms: no whole window in {tries}: {why}")
 
 
 def fit(y, n, dim=0):
@@ -231,7 +276,7 @@ def card_line() -> str:
 def phase_environment():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
-    from csr_tpu_torch.ops import _cuda
+    from csr_tpu_torch.ops import _cuda, spmm as spmm_op
 
     card = card_line()
     print(f"[1] card: {card}")
@@ -246,6 +291,18 @@ def phase_environment():
         for line in _cuda.build_log[name].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[1]   ptxas: {line.strip()}")
+    # the SpMM launch plan counts on five blocks of 256 threads an SM: of
+    # 65,536 registers and 233,472 B of shared memory (1 KB more a block)
+    log = _cuda.build_log["spmm_microblock"]
+    used = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    assert len(used) == len(spills) == 3, log
+    assert all(int(st) == int(ld) == 0 for st, ld in spills), spills
+    blocks = min(min(65536 // (int(r) * 256), 233472 // (int(sm) + 1024))
+                 for r, sm in used)
+    assert blocks * 132 >= spmm_op.BLOCKS_IN_FLIGHT, (used, blocks)
+    print(f"[1] spmm_microblock: no spills, {blocks} blocks an SM by registers "
+          "and shared memory")
     return card
 
 
@@ -454,15 +511,52 @@ def phase_alone(main_layouts, card):
               f"{call_ms:.5f} ms (host enqueue {call_host:.5f} ms); card {card}")
 
 
+SPMM_WIDTHS = (1, 3, 50, 64, 256, 300, 1100)
+
+
+def check_spmm(layout, a, b, bd=None):
+    """The SpMM kernel on ``layout`` (of the scipy matrix ``a``) times the
+    host array ``b`` against both plain versions and scipy, each within
+    spmm_share's bound; rows of ``b`` that hold inf must be rows no entry
+    reads (only a read from a padding slot could then make the result
+    non-finite), and count as zero for scipy.  Returns the largest
+    |kernel - plain| and the share of the bound it takes.  ``bd`` is ``b``
+    on the card, where the caller has placed it itself."""
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    if bd is None:
+        bd = torch.from_numpy(b).cuda()
+    c = spmm_op.spmm(layout, bd)
+    torch.cuda.synchronize()
+    assert c.shape == (layout.nrows, b.shape[1]) and c.dtype == torch.float32
+    err = share = 0.0
+    for plain in (spmm_op.spmm_reference, spmm_op.spmm_regrouped):
+        c_ref = plain(layout, bd)
+        err = max(err, float((c - c_ref).abs().max()))
+        share = max(share, spmm_share(c, c_ref.cpu().numpy()))
+    spmm_share(c, a.astype(np.float64) @ np.where(np.isfinite(b), b, 0.0))
+    return err, share
+
+
 def phase_spmm_kernel_vs_plain():
-    """SpMM kernel against spmm_reference on small seeded layouts: the six
-    (window, pair) variants at n = 1, 50 and 300, with one (rb, cb) group
-    of 228 entries that spans two micro-rows."""
+    """SpMM kernel against both plain versions (spmm_reference, slot by
+    slot, and spmm_regrouped, the kernel's algorithm) and scipy on small
+    seeded layouts: the six (window, pair) variants at the widths of
+    SPMM_WIDTHS (8, 16 and 32 lanes a row of B; padded copies at 1, 3 and
+    50; one, three and nine column tiles), with one (rb, cb) group of 228
+    entries that spans two micro-rows, the first at the 127-entry cap.
+    Column 0 of every 128-wide window is empty and B holds inf there, where
+    only padding slots point.  Then a B that is not 16 B aligned, a forced
+    split of the column tiles, and a group whose 128 rows are empty but
+    one."""
     from csr_tpu_torch.ops import microblock, spmm as spmm_op
 
     a, rng = small_matrix(8)
+    a = a.tolil()
+    a[:, ::128] = 0
+    a = a.tocsr()
+    a.eliminate_zeros()
     nrows, ncols = a.shape
-    a64 = a.astype(np.float64)
     worst = 0.0
     for window in (128, 256):
         for pair in (1, 2, 4):
@@ -471,18 +565,56 @@ def phase_spmm_kernel_vs_plain():
                 window=window, pair=pair, device="cuda",
             )
             shares = []
-            for n in (1, 50, 300):
+            for n in SPMM_WIDTHS:
                 b = rng.standard_normal((ncols, n)).astype(np.float32)
-                bd = torch.from_numpy(b).cuda()
-                c = spmm_op.spmm(layout, bd)
-                c_ref = spmm_op.spmm_reference(layout, bd)
-                torch.cuda.synchronize()
-                worst = max(worst, float((c - c_ref).abs().max()))
-                shares.append(spmm_share(c, c_ref.cpu().numpy()))
-                spmm_share(c, a64 @ b)
+                b[::128] = np.inf
+                err, share = check_spmm(layout, a, b)
+                worst = max(worst, err)
+                shares.append(share)
             print(f"[6] window {window} pair {pair}: {layout.n_microrows} "
-                  f"micro-rows; n = 1, 50, 300: share of bound vs plain "
-                  + ", ".join(f"{s:.3g}" for s in shares))
+                  f"micro-rows; n = {', '.join(map(str, SPMM_WIDTHS))}: share "
+                  "of bound vs plain " + ", ".join(f"{s:.3g}" for s in shares))
+    n_groups = layout.n_microrows // microblock.ACC_GROUP
+    shares = []
+    for n in (3, 50, 64):  # B one float past a 16 B boundary
+        b = rng.standard_normal((ncols, n)).astype(np.float32)
+        b[::128] = np.inf
+        buf = torch.empty(ncols * n + 1, device="cuda")
+        bd = buf[1:].view(ncols, n).copy_(torch.from_numpy(b))
+        assert bd.data_ptr() % 16 == 4 and bd.is_contiguous()
+        err, share = check_spmm(layout, a, b, bd=bd)
+        worst = max(worst, err)
+        shares.append(share)
+    print("[6] misaligned B, n = 3, 50, 64: share "
+          + ", ".join(f"{s:.3g}" for s in shares))
+    # nine column tiles over 2, 3 and 5 blocks a group: the slab that the
+    # plan sizes its chunks to is set so that a chunk takes 5, 3 and 2 tiles
+    b = rng.standard_normal((ncols, 1100)).astype(np.float32)
+    in_flight = -(-spmm_op.BLOCKS_IN_FLIGHT // n_groups)
+    slab = spmm_op.L2_SLAB_BYTES
+    try:
+        for per_chunk in (5, 3, 2):
+            spmm_op.L2_SLAB_BYTES = per_chunk * in_flight * 4 * (nrows + ncols) * 128
+            plan = spmm_op.launch_plan(1100, nrows, ncols, n_groups)
+            assert (plan.n_tiles, plan.tiles_per_chunk) == (9, per_chunk), plan
+            err, share = check_spmm(layout, a, b)
+            worst = max(worst, err)
+            print(f"[6] n 1100 in {plan.chunks} chunks of "
+                  f"{plan.tiles_per_chunk} tiles: share {share:.3g}")
+    finally:
+        spmm_op.L2_SLAB_BYTES = slab
+    # one row of a 128-row window holds every entry (a full group and more)
+    lone = sps.lil_matrix((256, 6000), dtype=np.float32)
+    cols = rng.choice(6000, 4500, replace=False)
+    lone[133, cols] = rng.standard_normal(4500)
+    lone = lone.tocsr()
+    layout = microblock.build_microblocks_host(
+        256, 6000, lone.indptr, lone.indices, lone.data, device="cuda")
+    b = rng.standard_normal((6000, 50)).astype(np.float32)
+    err, share = check_spmm(layout, lone, b)
+    worst = max(worst, err)
+    print(f"[6] one row of 4500 entries in {layout.n_microrows} micro-rows: "
+          f"share {share:.3g}")
     print(f"[6] kernel vs plain max abs err {worst:.3g}")
     return worst
 
@@ -555,18 +687,22 @@ def phase_multiply():
     return A, b
 
 
-def phase_spmm_timing(layout, b0, card):
-    """SpMM kernel and plain version at the flagship (chained_times; C has
-    B's shape, so C feeds the next iteration as B)."""
+def phase_spmm_timing(tag, layout, b0, card):
+    """SpMM kernel and plain version at one main-path shape
+    (chained_times; C, cut or zero-padded to B's rows, feeds the next
+    iteration as B)."""
     from csr_tpu_torch.ops import spmm as spmm_op
 
+    def on(fn):
+        return lambda lay, v: fit(fn(lay, v), lay.ncols)
+
     t_kern, t_plain = chained_times(
-        "10", layout, spmm_op.spmm, spmm_op.spmm_reference, b0, iters=20,
-        plain_iters=5, plain_reps=2, profile_iters=5)
+        "10", layout, on(spmm_op.spmm), on(spmm_op.spmm_reference), b0,
+        iters=20, plain_iters=3, plain_reps=2, profile_iters=5)
     cells = layout.nnz * b0.shape[1]
     for name, t in (("kernel", t_kern), ("plain", t_plain)):
-        print(f"[10] {name}: {t * 1e3:.5f} ms/iter, {cells / t / 1e9:.3f} G "
-              f"entry-columns/s ({cells * 4 / t / 1e9:.1f} GB/s of B rows "
+        print(f"[10] {tag}, {name}: {t * 1e3:.5f} ms/iter, {cells / t / 1e9:.3f} "
+              f"G entry-columns/s ({cells * 4 / t / 1e9:.1f} GB/s of B rows "
               f"read); card {card}")
     return t_kern * 1e3, t_plain * 1e3
 
@@ -589,7 +725,7 @@ def crossover(rows):
 def phase_densify_threshold(card):
     """Where the densified f32 matmul (TF32 off) starts to beat the SpMM
     kernel: 8192^2 matrices at densities 1e-3 .. 3e-1 times B of width 50
-    (an ALS half-step), 256 and 8192 (the sparse leg of an 8192^2
+    (an ALS half-step), 128, 256 and 8192 (the sparse leg of an 8192^2
     ``multiply``).  Timed alone (layout and dense form prebuilt) and as
     whole ``CSR.mult_dense`` calls on each route (the dense route
     densifies anew in every call, as a released handle drops its dense
@@ -599,12 +735,13 @@ def phase_densify_threshold(card):
     from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
     from csr_tpu_torch.ops import spmm as spmm_op
 
-    n, widths = 8192, (50, 256, 8192)
+    n, widths = 8192, (50, 128, 256, 8192)
     rng = np.random.default_rng(11)
     bs = {w: rng.standard_normal((n, w)).astype(np.float32) for w in widths}
     bds = {w: torch.from_numpy(b).cuda() for w, b in bs.items()}
     saved = cuda_k._DENSIFY_CROSSOVER
     rows = {w: [] for w in widths}
+    slow = []  # points where the picked route costs over 1.5 x the faster
     try:
         for d in (1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1):
             a = sps.random(n, n, d, format="csr", random_state=rng,
@@ -637,7 +774,8 @@ def phase_densify_threshold(card):
                       f"ms; the port picks {'dense' if picks_dense else 'kernel'}"
                       f" ({picked / min(kc_ms, dc_ms):.3f} of the faster); "
                       f"card {card}")
-                assert picked <= 1.5 * min(kc_ms, dc_ms), (d, w, kc_ms, dc_ms)
+                if picked > 1.5 * min(kc_ms, dc_ms):
+                    slow.append((d, w, kc_ms, dc_ms))
             cuda_k.release_handle(h)
             del csr, layout, h, dense
     finally:
@@ -648,6 +786,7 @@ def phase_densify_threshold(card):
         print(f"[11] B x {w}: whole dense-route calls beat kernel-route ones "
               f"from density {where}; the port's threshold is "
               f"{cuda_k._min_density(w):.4g}")
+    assert not slow, f"(density, n, kernel ms, dense ms) picked badly: {slow}"
 
 
 def small_stack(window, pair, seed):
@@ -974,6 +1113,10 @@ def phase_bucket_steps(tag, rmb, mesh, xs, a, card):
     lib_ms = device_ms(library, 10) / d
     call_ms, host = (t / d for t in per_call(kernel, 20))
     lib_call_ms, lib_host = (t / d for t in per_call(library, 20))
+    # device time above a call's own time, or under the bound, is a fault
+    # of the measurement
+    assert bound_ms <= ms <= 1.05 * call_ms, (bound_ms, ms, call_ms)
+    assert bound_ms <= lib_ms <= 1.05 * lib_call_ms, (bound_ms, lib_ms, lib_call_ms)
     print(f"[{tag}] a ring step at {a.shape[0]}x{a.shape[1]} (mean of the {d} "
           f"steps, {a.nnz / d:.0f} entries over {d} row shards), device time: "
           f"kernel {ms:.5f} ms ({bound_ms / ms:.4f} of it the bound), plain "
@@ -990,8 +1133,13 @@ def phase_bucket_steps(tag, rmb, mesh, xs, a, card):
 def phase_library(tag, a, layout, x, b, card, iters, mm_iters):
     """The yardsticks at one shape: the SpMV and SpMM kernels and
     ``torch.sparse_csr_tensor(...) @ x`` / ``@ B`` on the same products,
-    each over chained calls between CUDA events, beside each product's
-    bound.  The port never calls the library product."""
+    each over chained calls between CUDA events and as device time
+    (device_ms: the host's pace left out; the plain versions too), beside
+    each product's bound, and for SpMM the rate of the gather of
+    nnz * n * 4 B of B's rows (the kernel's, the library's, and that of
+    one ``torch.index_select`` of those rows).  The port never calls the
+    library product.
+    Returns, for "SpMV" and "SpMM", a dict of the times in ms."""
     from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
     from csr_tpu_torch.utils.profiling import least_ms, timed_chained
 
@@ -1007,9 +1155,13 @@ def phase_library(tag, a, layout, x, b, card, iters, mm_iters):
 
     xd = torch.from_numpy(x).cuda()
     out = {}
-    for name, kern, libfn, v0, its, width in (
-        ("SpMV", lambda v: spmv_op.spmv(layout, v), lambda v: lib @ v, xd, iters, 1),
-        ("SpMM", lambda v: spmm_op.spmm(layout, v), lambda v: lib @ v, b, mm_iters, n),
+    for name, kern, plain, libfn, v0, its, width in (
+        ("SpMV", lambda v: spmv_op.spmv(layout, v),
+         lambda v: spmv_op.spmv_reference(layout, v), lambda v: lib @ v, xd,
+         iters, 1),
+        ("SpMM", lambda v: spmm_op.spmm(layout, v),
+         lambda v: spmm_op.spmm_reference(layout, v), lambda v: lib @ v, b,
+         mm_iters, n),
     ):
         t_lib = timed_chained(chained(libfn), v0, iters=its)
         t_kern = timed_chained(chained(kern), v0, iters=its)
@@ -1020,15 +1172,41 @@ def phase_library(tag, a, layout, x, b, card, iters, mm_iters):
         scale = float(want.abs().max())
         gap = float((got - want).abs().max())
         assert gap <= 1e-3 * max(scale, 1.0), (name, gap, scale)
+        del got, want
+        lib_ms = device_ms(lambda: libfn(v0), 20)
+        ms = device_ms(lambda: kern(v0), 20)
+        plain_ms = device_ms(lambda: plain(v0), 2)
         bound_ms, by = least_ms(
             csr_bytes(a.nnz, nrows, ncols * width, nrows * width), 2 * a.nnz * width)
-        out[name] = (t_kern * 1e3, t_lib * 1e3, bound_ms, by)
+        # a chained product holds the call and more: device time above
+        # it, or under the bound, is a fault of the measurement
+        assert bound_ms <= ms <= 1.05 * t_kern * 1e3, (name, bound_ms, ms, t_kern)
+        assert bound_ms <= lib_ms <= 1.05 * t_lib * 1e3, (name, bound_ms, lib_ms, t_lib)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         chained_ms=t_kern * 1e3, chained_library_ms=t_lib * 1e3,
+                         bound_ms=bound_ms, bound_by=by)
+        gather = ""
+        if width > 1:
+            # B's rows by the matrix's column indices, one library gather:
+            # it writes the rows out as well, the products do not
+            cols = torch.from_numpy(a.indices.astype(np.int64)).cuda()
+            sel_ms = device_ms(lambda: torch.index_select(v0, 0, cols), 3)
+            del cols
+            out[name]["index_select_ms"] = sel_ms
+            gather = (
+                f"; the gather of nnz n 4 B = {a.nnz * width * 4 / 1e9:.3f} GB: "
+                f"kernel {a.nnz * width * 4 / ms / 1e9:.3f} TB/s, library "
+                f"{a.nnz * width * 4 / lib_ms / 1e9:.3f} TB/s, torch.index_select "
+                f"of B's rows {a.nnz * width * 4 / sel_ms / 1e9:.3f} TB/s "
+                f"({sel_ms:.5f} ms; it writes as much)")
         print(f"[{tag}] {name} at {nrows}x{ncols} (nnz {a.nnz}"
-              f"{'' if width == 1 else f', B x {width}'}): kernel "
-              f"{t_kern * 1e3:.5f} ms, torch.sparse CSR {t_lib * 1e3:.5f} ms per "
-              f"chained product, bound {bound_ms:.5f} ms by {by} (kernel "
-              f"{bound_ms / (t_kern * 1e3):.4f} of it); kernel vs library max abs "
-              f"diff {gap:.3g} of |y| up to {scale:.4g}; card {card}")
+              f"{'' if width == 1 else f', B x {width}'}), device time: kernel "
+              f"{ms:.5f} ms ({bound_ms / ms:.4f} of it the bound, {ms / lib_ms:.4f} "
+              f"of the library's), plain {plain_ms:.5f} ms, torch.sparse CSR "
+              f"{lib_ms:.5f} ms, bound {bound_ms:.5f} ms by {by}{gather}; per "
+              f"chained product: kernel {t_kern * 1e3:.5f} ms, torch.sparse CSR "
+              f"{t_lib * 1e3:.5f} ms; kernel vs library max abs diff {gap:.3g} of "
+              f"|y| up to {scale:.4g}; card {card}")
     return out
 
 
@@ -1062,7 +1240,7 @@ def main():
               f"err {err:.3g} (|y| up to {float(y_ref.abs().max()):.4g}), "
               f"share of bound {share:.3g}")
 
-    ms, plain_ms = phase_timing(*main_layouts[0][:2], card)
+    phase_timing(*main_layouts[0][:2], card)
     phase_alone(main_layouts, card)
 
     # the SpMM main path, on the matrices of phases 3 and 4 (the bound
@@ -1098,17 +1276,20 @@ def main():
         ("multiply", cuda_k._cached_layout(mul_a),
          torch.from_numpy(mul_b.toarray()).cuda()),
     ):
-        c, c_ref = spmm_op.spmm(layout, bd), spmm_op.spmm_reference(layout, bd)
-        torch.cuda.synchronize()
-        err = float((c - c_ref).abs().max())
+        c = spmm_op.spmm(layout, bd)
+        err = share = 0.0
+        for plain in (spmm_op.spmm_reference, spmm_op.spmm_regrouped):
+            c_ref = plain(layout, bd)
+            torch.cuda.synchronize()
+            err = max(err, float((c - c_ref).abs().max()))
+            share = max(share, spmm_share(c, c_ref.cpu().numpy()))
         spmm_err = max(spmm_err, err)
-        share = spmm_share(c, c_ref.cpu().numpy())
-        print(f"[10] kernel vs plain, {tag} ({layout.nrows}x{layout.ncols}, "
-              f"n {bd.shape[1]}): max abs err {err:.3g} (|C| up to "
-              f"{float(c_ref.abs().max()):.4g}), share of bound {share:.3g}")
+        print(f"[10] kernel vs both plain versions, {tag} ({layout.nrows}x"
+              f"{layout.ncols}, n {bd.shape[1]}): max abs err {err:.3g} (|C| up "
+              f"to {float(c_ref.abs().max()):.4g}), share of bound {share:.3g}")
         del c, c_ref
-    spmm_ms, spmm_plain_ms = phase_spmm_timing(cuda_k._cached_layout(fl_csr),
-                                               bd_fl, card)
+    phase_spmm_timing("flagship", cuda_k._cached_layout(fl_csr), bd_fl, card)
+    phase_spmm_timing("MovieLens shape", cuda_k._cached_layout(ml_csr), bd_ml, card)
     phase_densify_threshold(card)
 
     # the ring main path (local form, D = 4) at both shapes; the bucket
@@ -1129,18 +1310,20 @@ def main():
 
     lib_fl = phase_library("16", fl_a, cuda_k._cached_layout(fl_csr), fl[5],
                            bd_fl, card, iters=300, mm_iters=20)
-    phase_library("16", ml_a, cuda_k._cached_layout(ml_csr), ml[5], bd_ml, card,
-                  iters=100, mm_iters=10)
+    lib_ml = phase_library("16", ml_a, cuda_k._cached_layout(ml_csr), ml[5],
+                           bd_ml, card, iters=100, mm_iters=10)
 
     def yardsticks(name):
-        _, library_ms, bound_ms, by = lib_fl[name]
-        return dict(bound_ms=bound_ms, bound_by=by, library_ms=library_ms)
+        """Device times, the bound and the chained times at the flagship,
+        and the kernel's and the library's device time at the MovieLens
+        shape beside them."""
+        return dict(lib_fl[name], ms_movielens=lib_ml[name]["ms"],
+                    library_ms_movielens=lib_ml[name]["library_ms"])
 
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=launches, max_abs_err=max_err, ms=ms,
-             plain_ms=plain_ms, **yardsticks("SpMV")),
+        dict(KERNEL, launches=launches, max_abs_err=max_err, **yardsticks("SpMV")),
         dict(SPMM_KERNEL, launches=spmm_launches, max_abs_err=spmm_err,
-             ms=spmm_ms, plain_ms=spmm_plain_ms, **yardsticks("SpMM")),
+             **yardsticks("SpMM")),
         dict(BUCKET_KERNEL, launches=bucket_launches, **bucket),
     ]}))
     print(json.dumps({"ok": True, "device": {

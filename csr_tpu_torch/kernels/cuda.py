@@ -205,11 +205,16 @@ def mult_vec_t(h, v):
 #: starts to beat one on the SpMM kernel.  Both routes cost about
 #: rows x columns x n of A times a rate (the matmul's, or the kernel's at
 #: that density), plus densifying, which does not grow with n; so the
-#: crossover is a density that moves with n alone, and not monotonically
-#: (the kernel's time shrinks little below n = 256).  Measured on an H100
-#: 80GB HBM3 at 700 W (chip_smoke.py phase 11, 8192^2 at densities 1e-3
-#: to 3e-1, log-interpolated; PERF.md).
-_DENSIFY_CROSSOVER = ((50, 0.05895), (256, 0.0738), (8192, 0.0433))
+#: crossover is a density that moves with n alone.  Measured on an H100
+#: 80GB HBM3 at 700 W (chip_smoke.py phase 11, 8192^2 at densities 1e-3 to
+#: 3e-1, B 50, 128, 256 and 8192 wide, log-interpolated; PERF.md).  The
+#: points at n = 256 and 8192 lie inside that range.  At n = 128 the
+#: kernel route still wins at 0.3, by 8%, and its point is the trend of
+#: 0.1 and 0.3 carried on to where it crosses, 0.35; at n = 50 it wins at
+#: 0.3 by 2.2 x and that trend crosses at no density a matrix has, so its
+#: point is 1.  Past 0.3 both are extrapolated: a wrong route there costs
+#: time, never the result.
+_DENSIFY_CROSSOVER = ((50, 1.0), (128, 0.35), (256, 0.1706), (8192, 0.08193))
 
 
 def _min_density(n: int) -> float:

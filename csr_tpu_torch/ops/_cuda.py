@@ -35,8 +35,10 @@ _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ENTRIES = {
     # vals, meta, rbcb, x, y, n_groups, shift, nrows, stream
     "spmv_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp],
-    # vals, meta, rbcb, b, c, n_groups, shift, nrows, n, stream
-    "spmm_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _vp],
+    # vals, meta, rbcb, b, c, n_groups, shift, nrows, n, ldb, ldc, lanes,
+    # tiles_per_chunk, stream
+    "spmm_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _i64,
+                        _i64, _i32, _i64, _vp],
     # vals, meta, rbcb, held, groups, n_layers, n_buckets, bucket_microrows,
     # x, x_stride, y, y_stride, n_groups, shift, nrows, stream
     "spmv_bucket": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _vp, _i64, _vp,
@@ -95,13 +97,16 @@ def spmv_microblock(vals, meta, rbcb, x, y, n_groups: int, shift: int,
 
 
 def spmm_microblock(vals, meta, rbcb, b, c, n_groups: int, shift: int,
-                    nrows: int) -> None:
-    """Launch the micro-block SpMM kernel, ``C += A @ B`` with B and C
-    row-major, on the current stream.  The caller has checked the
-    tensors."""
+                    nrows: int, lanes: int, tiles_per_chunk: int) -> None:
+    """Launch the micro-block SpMM kernel, ``C += A @ B`` over the columns
+    of C, with B and C row-major (B's rows a multiple of 4 floats apart,
+    padded past C's width where it must be), on the current stream, by the
+    caller's launch plan (``lanes`` lanes on a row of B, ``tiles_per_chunk``
+    column tiles a block).  The caller has checked the tensors."""
     _launch("spmm_microblock", vals.data_ptr(), meta.data_ptr(),
             rbcb.data_ptr(), b.data_ptr(), c.data_ptr(), n_groups, shift,
-            nrows, b.shape[1], torch.cuda.current_stream(c.device).cuda_stream)
+            nrows, c.shape[1], b.stride(0), c.stride(0), lanes, tiles_per_chunk,
+            torch.cuda.current_stream(c.device).cuda_stream)
 
 
 def spmv_bucket(vals, meta, rbcb, held, groups, x, y, n_groups: int,

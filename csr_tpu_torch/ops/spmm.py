@@ -6,18 +6,27 @@ and B dense ``(A.ncols, n)``, row-major.
 
 * :func:`spmm` is the kernel wrapper.  On CUDA tensors it launches the
   hand-written kernel ``csrc/spmm_microblock.cu`` (the port of the Pallas
-  kernel ``csr_tpu/ops/spmm.py:_spmm_kernel``), or raises.  On CPU
-  tensors it runs :func:`spmm_reference`.
-* :func:`spmm_reference` is the plain PyTorch version of the same
-  micro-block algorithm, on the same layout arrays.
+  kernel ``csr_tpu/ops/spmm.py:_spmm_kernel``) by :func:`launch_plan`, or
+  raises.  On CPU tensors it runs :func:`spmm_regrouped`.
+* :func:`spmm_regrouped` is the plain PyTorch version of the kernel's
+  algorithm on the same layout arrays: every group of 32 micro-rows is
+  regrouped into a CSR over its 128 window rows (:func:`regroup`), each
+  row's run is summed, and the groups' row sums are added into C.
+* :func:`spmm_reference` is the plain PyTorch version that goes slot by
+  slot, with no regrouping: a second, independent statement of the result.
+* :func:`launch_plan` is the kernel's launch geometry as plain Python,
+  handed to the kernel's host code with every launch.
 * :data:`launches` counts kernel launches.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-from .microblock import ACC_GROUP, LANE, MicroBlockLayout, check_on_card
+from .microblock import (ACC_GROUP, LANE, SLOT_CAP, MicroBlockLayout,
+                         check_on_card)
 
 #: number of launches of the CUDA kernel (plain-version calls not counted)
 launches = 0
@@ -25,6 +34,72 @@ launches = 0
 #: elements of B's rows gathered at once by :func:`scatter_rows` (256 MB
 #: of f32), so the plain version's temporaries stay near 1 GB at any size
 _CHUNK_ELEMS = 1 << 26
+
+#: entries a group of ``ACC_GROUP`` micro-rows can hold
+GROUP_CAP = ACC_GROUP * SLOT_CAP
+#: columns a lane: one 16 B load of a row of B
+VEC = 4
+#: bytes of B's and C's columns that the blocks in flight together may
+#: touch and still find in the H100's 50 MB L2
+L2_SLAB_BYTES = 36 << 20
+#: blocks in flight on the card: 132 SMs, five blocks each
+BLOCKS_IN_FLIGHT = 660
+#: the widest second axis of a CUDA grid
+_MAX_CHUNKS = 65535
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernel is launched on a B of ``n`` columns.  The kernel's
+    host code takes ``lanes`` and ``tiles_per_chunk`` and derives the
+    tiles and the chunks from them as the properties here do."""
+
+    n: int
+    ldb: int  # floats a row of the B the kernel reads: n padded to 4
+    copy: bool  # whether the wrapper hands the kernel a copy of B
+    lanes: int  # lanes on one row of B; 32 // lanes entries a warp-step
+    tiles_per_chunk: int  # column tiles a block walks
+
+    @property
+    def tile(self) -> int:
+        """Columns a tile."""
+        return self.lanes * VEC
+
+    @property
+    def n_tiles(self) -> int:
+        return -(-self.ldb // self.tile)
+
+    @property
+    def chunks(self) -> int:
+        """Blocks a group (the grid's second axis)."""
+        return -(-self.n_tiles // self.tiles_per_chunk)
+
+
+def launch_plan(n: int, nrows: int, ncols: int, n_groups: int, *,
+                align: int = 16) -> LaunchPlan:
+    """The launch of the kernel for ``A (nrows, ncols) @ B (ncols, n)``
+    with ``n_groups`` groups of micro-rows, B's pointer aligned to
+    ``align`` bytes.
+
+    The kernel reads 16 B a lane from a B whose row stride is a multiple
+    of 4 floats: B itself where it is so and 16 B aligned, else a padded
+    copy.  A row of B takes 8, 16 or 32 lanes.  Blocks run chunk by chunk
+    of column tiles; a matrix of few groups has several chunks in flight
+    at once (:data:`BLOCKS_IN_FLIGHT` blocks), and the tiles a chunk are
+    as many as keep those chunks' columns of B and C within
+    :data:`L2_SLAB_BYTES`, at least one."""
+    if n < 1 or n_groups < 0:
+        raise ValueError(f"launch_plan: n {n}, n_groups {n_groups}")
+    ldb = -(-n // VEC) * VEC
+    copy = ldb != n or align % 16 != 0
+    per_row = ldb // VEC
+    lanes = 8 if per_row <= 8 else 16 if per_row <= 16 else 32
+    tile = lanes * VEC
+    n_tiles = -(-ldb // tile)
+    in_flight = -(-BLOCKS_IN_FLIGHT // max(n_groups, 1))
+    per_chunk = L2_SLAB_BYTES // (in_flight * 4 * (nrows + ncols) * tile)
+    per_chunk = min(max(per_chunk, -(-n_tiles // _MAX_CHUNKS), 1), n_tiles)
+    return LaunchPlan(n, ldb, copy, lanes, per_chunk)
 
 
 def scatter_rows(out, rows, cols, vals, b):
@@ -39,30 +114,110 @@ def scatter_rows(out, rows, cols, vals, b):
     return out
 
 
+def _decode(layout: MicroBlockLayout):
+    """``(lo, epos, row, real)`` of the layout's ``m`` micro-rows, each
+    (m, 128): the column in the window and the running entry count of
+    every slot, the window row that holds it (row ``r`` holds slots
+    ``[epos[r-1], epos[r])``; 128 past the last entry) and whether it
+    holds an entry (slots at or past the micro-row's count are padding)."""
+    m = layout.n_microrows
+    shift = layout.epos_shift
+    meta = layout.meta[:m].to(torch.int32)
+    lo = meta & ((1 << shift) - 1)
+    epos = ((meta >> shift) & 127).contiguous()
+    slot = torch.arange(LANE, dtype=torch.int32, device=layout.device)
+    row = torch.searchsorted(epos, slot.expand(m, LANE).contiguous(), right=True)
+    return lo, epos, row, slot < epos[:, -1:]
+
+
 def spmm_reference(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
-    """``A @ B`` in plain PyTorch: each slot's window row is found from
-    ``epos`` (row ``r`` holds slots ``[epos[r-1], epos[r])``), slots at or
-    past the micro-row's entry count are dropped, and every entry adds
-    ``vals * B[cb * window + lo]`` to its row.  Returns f32 ``(nrows, n)``
-    on the layout's device."""
+    """``A @ B`` in plain PyTorch, slot by slot: each slot's window row is
+    found from ``epos``, slots at or past the micro-row's entry count are
+    dropped, and every entry adds ``vals * B[cb * window + lo]`` to its
+    row.  Returns f32 ``(nrows, n)`` on the layout's device."""
     m = layout.n_microrows
     dev = layout.device
     b = b.to(device=dev, dtype=torch.float32)
     c = torch.zeros(layout.nrows, b.shape[1], dtype=torch.float32, device=dev)
     if m == 0 or b.shape[1] == 0:
         return c
-    shift = layout.epos_shift
-    meta = layout.meta[:m].to(torch.int32)
-    lo = meta & ((1 << shift) - 1)
-    epos = ((meta >> shift) & 127).contiguous()
-    slot = torch.arange(LANE, dtype=torch.int32, device=dev)
-    row = torch.searchsorted(epos, slot.expand(m, LANE).contiguous(), right=True)
-    # padding slots read no B, so 0 * inf never forms
-    real = slot < epos[:, -1:]
+    lo, _, row, real = _decode(layout)  # padding slots read no B
     rbcb = layout.rbcb[:m]
     rows = ((rbcb >> 16)[:, None] * LANE + row)[real]
-    cols = (((rbcb & 0xFFFF)[:, None] << shift) + lo)[real]
+    cols = (((rbcb & 0xFFFF)[:, None] << layout.epos_shift) + lo)[real]
     return scatter_rows(c, rows, cols, layout.vals[:m][real], b)
+
+
+def regroup(layout: MicroBlockLayout):
+    """Every group of ``ACC_GROUP`` micro-rows as a CSR over its 128
+    window rows, as the kernel builds it in shared memory.
+
+    Returns ``(offsets, cols, vals)`` for the ``G`` groups: ``offsets``
+    (G, 129) int32, ``cols`` (G, GROUP_CAP) int32 and ``vals``
+    (G, GROUP_CAP) f32.  Window row ``r`` of group ``g`` holds the entries
+    ``[offsets[g, r], offsets[g, r + 1])`` of ``cols[g]`` (the row of B,
+    ``cb * window + lo``) and ``vals[g]``, micro-row after micro-row and in
+    slot order within each.  A row's count is the sum over the group's
+    micro-rows of ``epos[r] - epos[r - 1]``; padding slots are left out,
+    and positions past ``offsets[g, 128]`` hold zeros."""
+    m = layout.n_microrows
+    dev = layout.device
+    n_groups = m // ACC_GROUP
+    lo, epos, row, real = _decode(layout)
+    prev = torch.nn.functional.pad(epos[:, :-1], (1, 0))  # epos[r - 1]
+    count = (epos - prev).view(n_groups, ACC_GROUP, LANE)
+    # entries of row r in the group's earlier micro-rows
+    before = (count.cumsum(1) - count).view(m, LANE)
+    offsets = torch.nn.functional.pad(count.sum(1).cumsum(1), (1, 0))
+    group = torch.arange(m, device=dev) // ACC_GROUP
+    r = row.clamp_max(LANE - 1)
+    slot = torch.arange(LANE, device=dev)
+    pos = (offsets[group[:, None], r] + before.gather(1, r) + slot
+           - prev.gather(1, r))
+    flat = (group[:, None] * GROUP_CAP + pos)[real]
+    cols = torch.zeros(n_groups, GROUP_CAP, dtype=torch.int32, device=dev)
+    vals = torch.zeros(n_groups, GROUP_CAP, dtype=torch.float32, device=dev)
+    base = (layout.rbcb[:m] & 0xFFFF)[:, None] << layout.epos_shift
+    cols.view(-1)[flat] = (base + lo)[real]
+    vals.view(-1)[flat] = layout.vals[:m][real]
+    return offsets.to(torch.int32), cols, vals
+
+
+def spmm_regrouped(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` in plain PyTorch by the kernel's algorithm: regroup every
+    group (:func:`regroup`), sum each window row's run of
+    ``vals * B[cols]``, and add each group's non-empty rows into C (where
+    the kernel takes atomics).  Groups go in chunks whose gathered rows of
+    B hold at most :data:`_CHUNK_ELEMS` elements.  Returns f32
+    ``(nrows, n)`` on the layout's device."""
+    m = layout.n_microrows
+    dev = layout.device
+    b = b.to(device=dev, dtype=torch.float32)
+    n = b.shape[1]
+    c = torch.zeros(layout.nrows, n, dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return c
+    offsets, cols, vals = regroup(layout)
+    rb = layout.rbcb[:m:ACC_GROUP] >> 16
+    window_rows = torch.arange(LANE, device=dev)
+    pos = torch.arange(GROUP_CAP, dtype=torch.int32, device=dev)
+    step = max(1, _CHUNK_ELEMS // (GROUP_CAP * n))
+    for g0 in range(0, offsets.shape[0], step):
+        off = offsets[g0:g0 + step]
+        g = off.shape[0]
+        # the window row of each position of a group's entries
+        row = torch.searchsorted(off[:, 1:].contiguous(),
+                                 pos.expand(g, GROUP_CAP).contiguous(), right=True)
+        real = pos < off[:, -1:]
+        local = (torch.arange(g, device=dev)[:, None] * LANE + row)[real]
+        sums = torch.zeros(g * LANE, n, dtype=torch.float32, device=dev)
+        sums.index_add_(0, local, vals[g0:g0 + step][real][:, None]
+                        * b[cols[g0:g0 + step][real]])
+        # a row with no entry in the group adds nothing
+        filled = (off[:, 1:] > off[:, :-1]).reshape(-1)
+        target = (rb[g0:g0 + step, None] * LANE + window_rows).reshape(-1)
+        c.index_add_(0, target[filled], sums[filled])
+    return c
 
 
 def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
@@ -77,20 +232,28 @@ def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
             f"{tuple(b.shape)} on {b.device}"
         )
     if dev.type == "cpu":
-        return spmm_reference(layout, b)
+        return spmm_regrouped(layout, b)
     if dev.type != "cuda":
         raise ValueError(f"spmm runs on CPU or CUDA tensors, not {dev}")
     check_on_card(layout)
     b = b.to(torch.float32).contiguous()
-    c = torch.zeros(layout.nrows, b.shape[1], dtype=torch.float32, device=dev)
-    if layout.n_microrows == 0 or b.shape[1] == 0:
+    n = b.shape[1]
+    c = torch.zeros(layout.nrows, n, dtype=torch.float32, device=dev)
+    n_groups = layout.n_microrows // ACC_GROUP
+    if n_groups == 0 or n == 0:
         return c
+    plan = launch_plan(n, layout.nrows, layout.ncols, n_groups,
+                       align=16 if b.data_ptr() % 16 == 0 else 4)
+    if plan.copy:  # rows padded to a multiple of 4 floats, 16 B aligned
+        padded = b.new_zeros(layout.ncols, plan.ldb)
+        padded[:, :n] = b
+        b = padded
     from . import _cuda
 
     with torch.cuda.device(dev):
         _cuda.spmm_microblock(
-            layout.vals, layout.meta, layout.rbcb, b, c,
-            layout.n_microrows // ACC_GROUP, layout.epos_shift, layout.nrows,
+            layout.vals, layout.meta, layout.rbcb, b, c, n_groups,
+            layout.epos_shift, layout.nrows, plan.lanes, plan.tiles_per_chunk,
         )
     launches += 1
     return c

@@ -56,34 +56,100 @@ def test_wrapper_rejects_bad_layout_on_card(cuda_device):
             spmv.spmv(broken, x)
 
 
-@pytest.mark.parametrize("window,pair", WINDOW_PAIR)
-def test_spmm_kernel_matches_reference_on_card(window, pair, cuda_device):
-    """All six variants at n = 1, 50 and 300 (three column tiles), with a
-    226-entry (rb 0, cb 0) group; row 0 of B is inf and no entry reads it,
-    so only a read from a padding slot could make the result non-finite."""
-    a = random_matrix(300, 700, 0.03, seed=90 + window + pair).tolil()
+def _spmm_case(window, pair, seed, cuda_device):
+    """A layout on the card whose (rb 0, cb 0) group holds 226 entries (its
+    first micro-row at the 127-entry cap) and whose column 0 is empty:
+    row 0 of B is read by padding slots only."""
+    a = random_matrix(300, 700, 0.03, seed=seed).tolil()
     a[:, 0] = 0
     a = a.tocsr()
     a.eliminate_zeros()
     layout = mb.build_microblocks_host(300, 700, a.indptr, a.indices, a.data,
                                        window=window, pair=pair,
                                        device=cuda_device)
-    rng = np.random.default_rng(window + pair)
-    for n in (1, 50, 300):
-        b = rng.uniform(-1, 1, (700, n)).astype(np.float32)
-        b[0] = np.inf
-        bd = torch.from_numpy(b).to(cuda_device)
-        before = spmm.launches
-        c = spmm.spmm(layout, bd)
-        c_ref = spmm.spmm_reference(layout, bd)
-        torch.cuda.synchronize()
-        assert spmm.launches == before + 1
-        assert c.shape == (300, n) and c.dtype == torch.float32
-        c = c.cpu().numpy()
-        assert np.all(np.isfinite(c))
-        assert_product_close(c, c_ref.cpu().numpy())
-        b[0] = 0.0
-        assert_product_close(c, a.astype(np.float64) @ b)
+    return a, layout
+
+
+def _check_spmm_on_card(a, layout, b, bd=None):
+    """One launch, held against both plain versions and scipy (rows of B
+    that hold inf count as zero: no entry reads them)."""
+    if bd is None:
+        bd = torch.from_numpy(b).to(layout.device)
+    before = spmm.launches
+    c = spmm.spmm(layout, bd)
+    torch.cuda.synchronize()
+    assert spmm.launches == before + 1
+    assert c.shape == (layout.nrows, b.shape[1]) and c.dtype == torch.float32
+    c = c.cpu().numpy()
+    assert np.all(np.isfinite(c))
+    assert_product_close(c, spmm.spmm_reference(layout, bd).cpu().numpy())
+    assert_product_close(c, spmm.spmm_regrouped(layout, bd).cpu().numpy())
+    assert_product_close(c, a.astype(np.float64) @ np.where(np.isfinite(b), b, 0.0))
+
+
+# 8, 16 and 32 lanes a row of B; padded copies at 1, 3 and 50; one, three
+# and nine column tiles
+@pytest.mark.parametrize("n", [1, 3, 50, 64, 256, 300, 1100])
+@pytest.mark.parametrize("window,pair", WINDOW_PAIR)
+def test_spmm_kernel_matches_reference_on_card(window, pair, n, cuda_device):
+    """All six variants at every width; row 0 of B is inf and no entry
+    reads it, so only a read from a padding slot could make the result
+    non-finite."""
+    a, layout = _spmm_case(window, pair, 90 + window + pair, cuda_device)
+    b = np.random.default_rng(window + pair + n).uniform(-1, 1, (700, n))
+    b = b.astype(np.float32)
+    b[0] = np.inf
+    _check_spmm_on_card(a, layout, b)
+
+
+@pytest.mark.parametrize("n", [3, 50, 64])
+def test_spmm_misaligned_and_split_on_card(n, cuda_device, monkeypatch):
+    """B one float off a 16 B boundary (the wrapper copies it), and the
+    nine column tiles of a wide B in chunks of 5, 3 and 2 (the slab that
+    the plan sizes its chunks to is set so)."""
+    a, layout = _spmm_case(256, 1, 97, cuda_device)
+    b = np.random.default_rng(n).uniform(-1, 1, (700, n)).astype(np.float32)
+    b[0] = np.inf
+    buf = torch.empty(700 * n + 1, device=cuda_device)
+    bd = buf[1:].view(700, n).copy_(torch.from_numpy(b))
+    assert bd.data_ptr() % 16 == 4
+    _check_spmm_on_card(a, layout, b, bd=bd)
+    wide = np.random.default_rng(n + 1).uniform(-1, 1, (700, 1100)).astype(np.float32)
+    n_groups = layout.n_microrows // mb.ACC_GROUP
+    per_chunk = {3: 5, 50: 3, 64: 2}[n]
+    in_flight = -(-spmm.BLOCKS_IN_FLIGHT // n_groups)
+    monkeypatch.setattr(spmm, "L2_SLAB_BYTES",
+                        per_chunk * in_flight * 4 * (300 + 700) * 128)
+    plan = spmm.launch_plan(1100, 300, 700, n_groups)
+    assert (plan.n_tiles, plan.tiles_per_chunk) == (9, per_chunk)
+    _check_spmm_on_card(a, layout, wide)
+
+
+def test_spmm_repeatable_on_card(cuda_device):
+    """Run to run.  A matrix whose every 128-row window fits one group of
+    32 micro-rows repeats bit for bit: the order of sums within a group is
+    fixed.  Where a window spans several groups their atomic adds into C
+    come in an order that varies, so the result is held to the tolerance
+    only."""
+    small = random_matrix(300, 700, 0.03, seed=98)
+    layout = mb.build_microblocks_host(300, 700, small.indptr, small.indices,
+                                       small.data, device=cuda_device)
+    rb = (layout.rbcb[: layout.n_microrows] >> 16).cpu().numpy()
+    assert np.bincount(rb).max() <= mb.ACC_GROUP, "a window spans two groups"
+    b = torch.rand(700, 50, device=cuda_device)
+    first = spmm.spmm(layout, b)
+    for _ in range(5):
+        assert torch.equal(spmm.spmm(layout, b), first)
+
+    big = random_matrix(300, 6000, 0.2, seed=99)
+    layout = mb.build_microblocks_host(300, 6000, big.indptr, big.indices,
+                                       big.data, device=cuda_device)
+    rb = (layout.rbcb[: layout.n_microrows] >> 16).cpu().numpy()
+    assert np.bincount(rb).max() > mb.ACC_GROUP
+    b = torch.rand(6000, 50, device=cuda_device)
+    first = spmm.spmm(layout, b).cpu().numpy()
+    for _ in range(5):
+        assert_product_close(spmm.spmm(layout, b).cpu().numpy(), first)
 
 
 def test_spmm_wrapper_rejects_bad_operands_on_card(cuda_device):

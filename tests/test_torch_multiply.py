@@ -228,9 +228,10 @@ def test_densify_threshold_follows_width(monkeypatch):
         assert min(d0, d1) <= mid <= max(d0, d1)
     c = CSR.from_scipy(sps.random(64, 64, 0.5, format="csr", random_state=0,
                                   dtype=np.float32))
-    assert cuda_k._dense_affordable(c, 50)
+    assert cuda_k._dense_affordable(c, 256)
+    assert not cuda_k._dense_affordable(c, 50)  # the kernel wins at any density
     monkeypatch.setattr(spgemm, "max_dense_bytes", 64 * 64 * 4 - 1)
-    assert not cuda_k._dense_affordable(c, 50)
+    assert not cuda_k._dense_affordable(c, 256)
 
 
 def test_wide_matrix_stays_on_kernel(routes):
