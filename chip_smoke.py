@@ -276,7 +276,7 @@ def card_line() -> str:
 def phase_environment():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
-    from csr_tpu_torch.ops import _cuda, spmm as spmm_op
+    from csr_tpu_torch.ops import _cuda, spmm as spmm_op, spmv as spmv_op
 
     card = card_line()
     print(f"[1] card: {card}")
@@ -303,6 +303,17 @@ def phase_environment():
     assert blocks * 132 >= spmm_op.BLOCKS_IN_FLIGHT, (used, blocks)
     print(f"[1] spmm_microblock: no spills, {blocks} blocks an SM by registers "
           "and shared memory")
+    # the bucket kernel's grid counts on BLOCKS_PER_SM blocks an SM of
+    # WARPS_PER_BLOCK warps, each warp with its ring of stages in shared
+    # memory: the runtime must agree
+    log = _cuda.build_log["spmv_bucket"]
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    assert len(spills) == 1 and spills[0] == ("0", "0"), log
+    blocks, threads, smem = _cuda.spmv_bucket_occupancy()
+    assert blocks == spmv_op.BLOCKS_PER_SM, (blocks, spmv_op.BLOCKS_PER_SM)
+    assert threads == 32 * spmv_op.WARPS_PER_BLOCK, threads
+    print(f"[1] spmv_bucket: no spills, {blocks} block an SM of {threads} "
+          f"threads and {smem} B of shared memory, by the CUDA runtime")
     return card
 
 
@@ -789,46 +800,85 @@ def phase_densify_threshold(card):
     assert not slow, f"(density, n, kernel ms, dense ms) picked badly: {slow}"
 
 
-def small_stack(window, pair, seed):
-    """A stack of two layers by three buckets of 512 x 768 layouts at one
-    (window, pair), bucket 1 of layer 0 empty, padded to the largest as
-    the ring pads its buckets; and the scipy matrix of each bucket."""
+def small_stack(window, pair, seed, n_layers=2, n_buckets=3, nrows=512):
+    """A stack of ``n_layers`` layers by ``n_buckets`` buckets of nrows x 768
+    layouts at one (window, pair), bucket (l + 1) % n_buckets of layer l
+    empty, padded to the largest as the ring pads its buckets; and the
+    scipy matrix of each bucket, by layer."""
     from csr_tpu_torch.ops import microblock
 
-    nrows, ncols = 512, 768
+    ncols = 768
     mats, layouts = [], []
-    for l in range(2):
-        for b in range(3):
+    for l in range(n_layers):
+        for b in range(n_buckets):
             rng = np.random.default_rng(seed + 10 * l + b)
-            a = sps.random(nrows, ncols, 0.0 if (l, b) == (0, 1) else 0.02 * (b + 1),
-                           format="csr", random_state=rng, dtype=np.float32)
+            density = 0.0 if b == (l + 1) % n_buckets else 0.02 * (1 + (l + b) % 3)
+            a = sps.random(nrows, ncols, density, format="csr", random_state=rng,
+                           dtype=np.float32)
             mats.append(a)
             layouts.append(microblock.build_microblocks_host(
                 nrows, ncols, a.indptr, a.indices, a.data, window=window,
                 pair=pair, device="cpu"))
-    m_pad = max(lay.vals.shape[0] for lay in layouts)
-    vals = torch.zeros(2, 3, m_pad, 128)
-    meta = torch.zeros(2, 3, m_pad, 128, dtype=torch.uint16)
-    rbcb = torch.zeros(2, 3, m_pad, dtype=torch.int32)
-    groups = torch.zeros(2, 3, dtype=torch.int32)
+    shape = (n_layers, n_buckets, max(lay.vals.shape[0] for lay in layouts))
+    vals = torch.zeros(*shape, 128)
+    meta = torch.zeros(*shape, 128, dtype=torch.uint16)
+    rbcb = torch.zeros(shape, dtype=torch.int32)
+    groups = torch.zeros(shape[:2], dtype=torch.int32)
     for i, lay in enumerate(layouts):
-        m = lay.vals.shape[0]
-        vals[i // 3, i % 3, :m] = lay.vals
-        meta[i // 3, i % 3, :m] = lay.meta
-        rbcb[i // 3, i % 3, :m] = lay.rbcb
-        groups[i // 3, i % 3] = lay.n_microrows // microblock.ACC_GROUP
+        l, b, m = i // n_buckets, i % n_buckets, lay.vals.shape[0]
+        vals[l, b, :m], meta[l, b, :m], rbcb[l, b, :m] = lay.vals, lay.meta, lay.rbcb
+        groups[l, b] = lay.n_microrows // microblock.ACC_GROUP
     stack = microblock.BucketStack(
         nrows, ncols, window, vals.cuda(), meta.cuda(), rbcb.cuda(),
         groups.cuda(), int(groups.max()))
-    return stack, mats
+    return stack, [mats[l * n_buckets:(l + 1) * n_buckets] for l in range(n_layers)]
+
+
+def per_warp(stack, held, blocks):
+    """The most micro-rows a warp of the bucket kernel takes on ``blocks``
+    blocks with ``held`` (a host tensor)."""
+    from csr_tpu_torch.ops import spmv as spmv_op
+
+    work = spmv_op.bucket_work(stack, held, blocks)
+    return -(-max(map(len, work)) // spmv_op.WARPS_PER_BLOCK)
+
+
+def check_bucket(stack, mats, held, x, y0):
+    """One launch of the bucket kernel with ``held`` (a host tuple) on the
+    card, adding into ``y0``, against spmv_bucket_reference and scipy:
+    what each layer gained is held to spmv_share's bound against both, and
+    a layer whose held bucket is empty or out of range must gain nothing.
+    Returns the largest |kernel - plain| and the two largest shares."""
+    from csr_tpu_torch.ops import spmv as spmv_op
+
+    hd = torch.tensor(held, dtype=torch.int32, device="cuda")
+    xd, y0d = torch.from_numpy(x).cuda(), torch.from_numpy(y0).cuda()
+    y = spmv_op.spmv_bucket(stack, hd, xd, y0d.clone())
+    y_ref = spmv_op.spmv_bucket_reference(stack, hd, xd, y0d.clone())
+    torch.cuda.synchronize()
+    plain = share = 0.0
+    for l, h in enumerate(held):
+        if not 0 <= h < stack.n_buckets or mats[l][h].nnz == 0:
+            assert torch.equal(y[l], y0d[l]), f"layer {l}, held {h} added"
+            continue
+        a, added = mats[l][h], y[l] - y0d[l]
+        plain = max(plain, spmv_share(added, (y_ref[l] - y0d[l]).cpu().numpy(),
+                                      a, x[l]))
+        share = max(share, spmv_share(added, a.astype(np.float64) @ x[l], a, x[l]))
+    return float((y - y_ref).abs().max()), plain, share
 
 
 def phase_bucket_vs_plain():
     """The bucket kernel against spmv_bucket_reference on small seeded
-    stacks: all six (window, pair) variants, every bucket of both layers
-    (an empty one among them), adding into a non-zero y.  What each launch
-    added is held to spmv_share's bound against the plain version's and
-    against scipy's product."""
+    stacks: all six (window, pair) variants of two layers by three
+    buckets, every bucket of both layers (empty ones among them); then the
+    persistent loop's corners: a one-layer stack and a D = 7 one, on the
+    card's grid (a micro-row a warp at most), on four blocks and on one
+    (many micro-rows a warp, each stage of shared memory taken many
+    times), with every held bucket in turn, held indices outside the stack
+    for some layers only, and every held bucket empty (no micro-row).  Always adding
+    into a non-zero y; what each launch added is held to spmv_share's
+    bound against the plain version's and against scipy's product."""
     from csr_tpu_torch.ops import spmv as spmv_op
 
     worst = 0.0
@@ -838,27 +888,42 @@ def phase_bucket_vs_plain():
             rng = np.random.default_rng(window + pair)
             x = rng.standard_normal((2, stack.ncols)).astype(np.float32)
             y0 = rng.standard_normal((2, stack.nrows)).astype(np.float32)
-            xd, y0d = torch.from_numpy(x).cuda(), torch.from_numpy(y0).cuda()
-            shares, plain = [], []
+            plain = share = 0.0
             for held in ((0, 1), (1, 2), (2, 0)):
-                hd = torch.tensor(held, dtype=torch.int32, device="cuda")
-                y = spmv_op.spmv_bucket(stack, hd, xd, y0d.clone())
-                y_ref = spmv_op.spmv_bucket_reference(stack, hd, xd, y0d.clone())
-                torch.cuda.synchronize()
-                worst = max(worst, float((y - y_ref).abs().max()))
-                for l, h in enumerate(held):
-                    a = mats[3 * l + h]
-                    added = y[l] - y0d[l]
-                    plain.append(spmv_share(
-                        added, (y_ref[l] - y0d[l]).cpu().numpy(), a, x[l]))
-                    shares.append(spmv_share(added, a.astype(np.float64) @ x[l],
-                                             a, x[l]))
-                    if a.nnz == 0:
-                        assert torch.equal(y[l], y0d[l]), "an empty bucket added"
+                err, p, s = check_bucket(stack, mats, held, x, y0)
+                worst, plain, share = max(worst, err), max(plain, p), max(share, s)
             print(f"[12] window {window} pair {pair}: groups "
-                  f"{stack.groups.tolist()}, grid {stack.n_groups} x 2; largest "
-                  f"share of bound vs plain {max(plain):.3g}, vs scipy "
-                  f"{max(shares):.3g}")
+                  f"{stack.groups.tolist()}; largest share of bound vs plain "
+                  f"{plain:.3g}, vs scipy {share:.3g}")
+    saved = spmv_op._sm_count, spmv_op.BLOCKS_PER_SM
+    try:
+        for n_layers, n_buckets, window in ((1, 3, 128), (7, 7, 256)):
+            stack, mats = small_stack(window, 2, 300 + n_layers, n_layers,
+                                      n_buckets, nrows=1024)
+            rng = np.random.default_rng(n_layers)
+            x = rng.standard_normal((n_layers, stack.ncols)).astype(np.float32)
+            y0 = rng.standard_normal((n_layers, stack.nrows)).astype(np.float32)
+            layers = range(n_layers)
+            helds = [tuple((l + k) % n_buckets for l in layers)
+                     for k in range(n_buckets)]
+            helds.append(tuple((-1, n_buckets, 0)[l % 3] for l in layers))
+            helds.append(tuple((l + 1) % n_buckets for l in layers))  # all empty
+            for grid, sms, per_sm in (("the card's", saved[0], saved[1]),
+                                      ("four blocks", lambda dev: 4, 1),
+                                      ("one block", lambda dev: 1, 1)):
+                spmv_op._sm_count, spmv_op.BLOCKS_PER_SM = sms, per_sm
+                blocks = spmv_op.bucket_grid(stack, sms(stack.device))
+                most = per_warp(stack, torch.tensor(helds[0]), blocks)
+                plain = share = 0.0
+                for held in helds:
+                    err, p, s = check_bucket(stack, mats, held, x, y0)
+                    worst, plain, share = max(worst, err), max(plain, p), max(share, s)
+                print(f"[12] {n_layers} x {n_buckets} stack on {grid} grid "
+                      f"({blocks} blocks, up to {most} micro-rows a warp), "
+                      f"{len(helds)} held vectors: share of bound vs plain "
+                      f"{plain:.3g}, vs scipy {share:.3g}")
+    finally:
+        spmv_op._sm_count, spmv_op.BLOCKS_PER_SM = saved
     print(f"[12] bucket kernel vs plain max abs err {worst:.3g}")
 
 
@@ -1056,46 +1121,78 @@ def csr_bytes(nnz, nrows, x_elems, y_elems):
     return 8 * nnz + 4 * (nrows + 1) + 4 * x_elems + 4 * y_elems
 
 
+def layer_stack(stack, l):
+    """Layer ``l`` of a stack alone (views, no copy): what one rank of a
+    four-card ring holds and launches on."""
+    from csr_tpu_torch.ops import microblock
+
+    return microblock.BucketStack(
+        stack.nrows, stack.ncols, stack.window, stack.vals[l:l + 1],
+        stack.meta[l:l + 1], stack.rbcb[l:l + 1], stack.groups[l:l + 1],
+        stack.n_groups)
+
+
 def phase_bucket_steps(tag, rmb, mesh, xs, a, card):
-    """The D steps of a ring product, each alone on one operand (a step is
-    one launch over all D row shards): the bucket kernel is held to
-    spmv_share's bound against its plain version and against scipy at
-    every step.  Then the kernel, its plain version and the library call
-    on the same entries, the D steps in turn: each one's device time
-    (device_ms), beside the steps' bound, and the kernel's and the
-    library's time a call from the host between two CUDA events.  Taking
-    the steps in turn keeps a step from finding its buckets in L2, which a
-    quarter of the flagship's stack would fit.  Times and the bound are
-    means over the D steps."""
+    """The bucket kernel's two launches of a ring step, each alone on one
+    operand: the local form's (one launch over all D row shards) and the
+    one that a rank of a D-card ring makes (one layer of the stack, the
+    rank's own row shard).  At every step the four-layer launch, and the D
+    one-layer launches together, are held to spmv_share's bound against
+    the plain version and scipy.  Then, for each launch, the kernel, its
+    plain version (four-layer only) and the library call on the same
+    entries, taken in turn (the D steps; the D x D (layer, step) pairs):
+    device time (device_ms) beside the bound, and a call's time from the
+    host between two CUDA events.  Taking them in turn keeps a launch
+    from finding its buckets in L2.  Times and bounds are means over the
+    launches."""
     from csr_tpu_torch.ops import spmv as spmv_op
     from csr_tpu_torch.parallel import mb_ring
     from csr_tpu_torch.utils.profiling import least_ms
 
     d, stack, held = rmb.n_shards, rmb.stack, mesh.held
+    sms = spmv_op._sm_count(stack.device)
+    layers = [layer_stack(stack, l) for l in range(d)]
     y = torch.zeros(d, rmb.rows_per_shard, device="cuda")
     xs_host = xs.cpu().numpy()
-    err = share = plain_share = bound_ms = 0.0
-    libs = []
+    starts = np.concatenate([[0], np.cumsum(rmb.nrows_local)])
+    err = share = plain_share = bound_ms = bound1_ms = 0.0
+    libs, libs1, most = [], [], {4: 0, 1: 0}
     for k, a_k in enumerate(step_matrices(rmb, a)):
         y_k = spmv_op.spmv_bucket(stack, held[k], xs, y.clone())
+        y_1 = y.clone()
+        for l in range(d):
+            spmv_op.spmv_bucket(layers[l], held[k][l:l + 1], xs[l:l + 1],
+                                y_1[l:l + 1])
         y_ref = spmv_op.spmv_bucket_reference(stack, held[k], xs, y.clone())
         torch.cuda.synchronize()
-        err = max(err, float((y_k - y_ref).abs().max()))
         # the operand is not rotated here: shard s's slice stands in for
         # column shard (s + k) % D, so rebuild the operand the entries see
         x_seen = np.zeros(a.shape[1], np.float32)
         for s in range(d):
             c0, c1 = rmb.col_offset[(s + k) % d], rmb.col_offset[(s + k) % d + 1]
             x_seen[c0:c1] = xs_host[s, : c1 - c0]
-        got = mb_ring.collect_rows(rmb, y_k)
-        plain_share = max(plain_share, spmv_share(
-            got, mb_ring.collect_rows(rmb, y_ref).cpu().numpy(), a_k, x_seen))
-        share = max(share, spmv_share(got, a_k.astype(np.float64) @ x_seen,
-                                      a_k, x_seen))
-        libs.append((torch_csr(a_k), torch.from_numpy(x_seen).cuda()))
+        ref = mb_ring.collect_rows(rmb, y_ref).cpu().numpy()
+        for got in (y_k, y_1):
+            err = max(err, float((got - y_ref).abs().max()))
+            got = mb_ring.collect_rows(rmb, got)
+            plain_share = max(plain_share, spmv_share(got, ref, a_k, x_seen))
+            share = max(share, spmv_share(got, a_k.astype(np.float64) @ x_seen,
+                                          a_k, x_seen))
+        x_dev = torch.from_numpy(x_seen).cuda()
+        libs.append((torch_csr(a_k), x_dev))
         step_ms, by = least_ms(csr_bytes(a_k.nnz, a.shape[0], d * rmb.cols_per_shard,
                                          2 * a.shape[0]), 2 * a_k.nnz)
         bound_ms += step_ms / d
+        for l in range(d):
+            a_lk = a_k[starts[l]:starts[l + 1]]
+            libs1.append((torch_csr(a_lk), x_dev))
+            rows = a_lk.shape[0]
+            bound1_ms += least_ms(csr_bytes(a_lk.nnz, rows, rmb.cols_per_shard,
+                                            2 * rows), 2 * a_lk.nnz)[0] / d / d
+            most[1] = max(most[1], per_warp(layers[l], held[k][l:l + 1].cpu(),
+                                             spmv_op.bucket_grid(layers[l], sms)))
+        most[4] = max(most[4], per_warp(stack, held[k].cpu(),
+                                         spmv_op.bucket_grid(stack, sms)))
 
     def steps(fn):
         def product():
@@ -1103,20 +1200,34 @@ def phase_bucket_steps(tag, rmb, mesh, xs, a, card):
                 fn(stack, held[k], xs, y)
         return product
 
-    def library():
-        for lib, xd in libs:
-            lib @ xd
+    def one_layer():
+        for k in range(d):
+            for l in range(d):
+                spmv_op.spmv_bucket(layers[l], held[k][l:l + 1], xs[l:l + 1],
+                                    y[l:l + 1])
+
+    def library(pairs):
+        def calls():
+            for lib, xd in pairs:
+                lib @ xd
+        return calls
 
     kernel = steps(spmv_op.spmv_bucket)
     ms = device_ms(kernel, 10) / d
     plain_ms = device_ms(steps(spmv_op.spmv_bucket_reference), 2) / d
-    lib_ms = device_ms(library, 10) / d
+    lib_ms = device_ms(library(libs), 10) / d
     call_ms, host = (t / d for t in per_call(kernel, 20))
-    lib_call_ms, lib_host = (t / d for t in per_call(library, 20))
+    lib_call_ms, lib_host = (t / d for t in per_call(library(libs), 20))
+    ms1 = device_ms(one_layer, 5) / d / d
+    lib1_ms = device_ms(library(libs1), 5) / d / d
+    call1_ms, host1 = (t / d / d for t in per_call(one_layer, 10))
+    lib1_call_ms, _ = (t / d / d for t in per_call(library(libs1), 10))
     # device time above a call's own time, or under the bound, is a fault
     # of the measurement
-    assert bound_ms <= ms <= 1.05 * call_ms, (bound_ms, ms, call_ms)
-    assert bound_ms <= lib_ms <= 1.05 * lib_call_ms, (bound_ms, lib_ms, lib_call_ms)
+    for b, t, t_call in ((bound_ms, ms, call_ms), (bound_ms, lib_ms, lib_call_ms),
+                         (bound1_ms, ms1, call1_ms), (bound1_ms, lib1_ms, lib1_call_ms)):
+        assert b <= t <= 1.05 * t_call, (b, t, t_call)
+    grids = [spmv_op.bucket_grid(s, sms) for s in (stack, layers[0])]
     print(f"[{tag}] a ring step at {a.shape[0]}x{a.shape[1]} (mean of the {d} "
           f"steps, {a.nnz / d:.0f} entries over {d} row shards), device time: "
           f"kernel {ms:.5f} ms ({bound_ms / ms:.4f} of it the bound), plain "
@@ -1126,8 +1237,18 @@ def phase_bucket_steps(tag, rmb, mesh, xs, a, card):
           f"{lib_call_ms:.5f} ms (enqueue {lib_host:.5f} ms); kernel vs plain "
           f"max abs err {err:.3g}, share of bound vs plain {plain_share:.3g}, "
           f"vs scipy {share:.3g}; card {card}")
+    print(f"[{tag}] one rank's launch (one layer, mean of the {d * d} (layer, "
+          f"step) pairs), device time: kernel {ms1:.5f} ms ({bound1_ms / ms1:.4f} "
+          f"of it the bound), torch.sparse CSR @ x {lib1_ms:.5f} ms, bound "
+          f"{bound1_ms:.5f} ms; a call from the host: kernel {call1_ms:.5f} ms "
+          f"(enqueue {host1:.5f} ms), torch.sparse {lib1_call_ms:.5f} ms; card "
+          f"{card}")
+    print(f"[{tag}] grid: {grids[0]} blocks for {d} layers, {grids[1]} for one "
+          f"({spmv_op.BLOCKS_PER_SM} an SM of {sms}); up to {most[4]} and "
+          f"{most[1]} micro-rows a warp")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=lib_ms)
+                bound_by=by, library_ms=lib_ms, one_layer_ms=ms1,
+                one_layer_bound_ms=bound1_ms, one_layer_library_ms=lib1_ms)
 
 
 def phase_library(tag, a, layout, x, b, card, iters, mm_iters):
@@ -1306,6 +1427,9 @@ def main():
     bucket = phase_bucket_steps("15", *fl_ring, fl_a, card)
     bucket_ml = phase_bucket_steps("15", *ml_ring, ml_a, card)
     bucket["max_abs_err"] = max(bucket["max_abs_err"], bucket_ml["max_abs_err"])
+    for key in ("ms", "bound_ms", "library_ms", "one_layer_ms",
+                "one_layer_bound_ms", "one_layer_library_ms"):
+        bucket[f"{key}_movielens"] = bucket_ml[key]
     del fl_ring, ml_ring
 
     lib_fl = phase_library("16", fl_a, cuda_k._cached_layout(fl_csr), fl[5],

@@ -40,7 +40,7 @@ ENTRIES = {
     "spmm_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _i64,
                         _i64, _i32, _i64, _vp],
     # vals, meta, rbcb, held, groups, n_layers, n_buckets, bucket_microrows,
-    # x, x_stride, y, y_stride, n_groups, shift, nrows, stream
+    # x, x_stride, y, y_stride, grid, shift, nrows, stream
     "spmv_bucket": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _vp, _i64, _vp,
                     _i64, _i64, _i32, _i32, _vp],
 }
@@ -109,14 +109,26 @@ def spmm_microblock(vals, meta, rbcb, b, c, n_groups: int, shift: int,
             torch.cuda.current_stream(c.device).cuda_stream)
 
 
-def spmv_bucket(vals, meta, rbcb, held, groups, x, y, n_groups: int,
+def spmv_bucket(vals, meta, rbcb, held, groups, x, y, grid: int,
                 shift: int, nrows: int) -> None:
     """Launch the bucket-selecting SpMV kernel on the current stream:
     ``y[l] += A[l, held[l]] @ x[l]`` for every layer ``l`` of the stack
-    ``vals`` (L, B, M, 128), over a grid of ``n_groups`` groups a layer.
-    The caller has checked the tensors."""
+    ``vals`` (L, B, M, 128), on ``grid`` blocks whose warps share out the
+    held buckets' micro-rows.  The caller has checked the tensors."""
     n_layers, n_buckets, m = rbcb.shape
     _launch("spmv_bucket", vals.data_ptr(), meta.data_ptr(), rbcb.data_ptr(),
             held.data_ptr(), groups.data_ptr(), n_layers, n_buckets, m,
-            x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), n_groups,
+            x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), grid,
             shift, nrows, torch.cuda.current_stream(y.device).cuda_stream)
+
+
+def spmv_bucket_occupancy() -> tuple:
+    """The bucket kernel's blocks an SM of the current device, by the CUDA
+    runtime's reckoning of its registers, threads and shared memory; the
+    threads and the shared memory (bytes) a block takes."""
+    fn = library("spmv_bucket").csrt_spmv_bucket_occupancy
+    blocks, threads, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = fn(ctypes.byref(blocks), ctypes.byref(threads), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"spmv_bucket occupancy query failed: CUDA error {rc}")
+    return blocks.value, threads.value, smem.value

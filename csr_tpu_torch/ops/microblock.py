@@ -148,7 +148,7 @@ class BucketStack:
     meta: torch.Tensor  # (L, B, M, 128) u16
     rbcb: torch.Tensor  # (L, B, M) i32
     groups: torch.Tensor  # (L, B) i32: real_microrows // ACC_GROUP
-    n_groups: int  # the largest entry of ``groups`` (the grid's width)
+    n_groups: int  # the largest entry of ``groups`` (caps the grid)
 
     @property
     def device(self) -> torch.device:
@@ -167,9 +167,16 @@ class BucketStack:
         return 7 if self.window == LANE else 8
 
 
+#: the most layers a stack may have on the card: a warp of the bucket
+#: kernel holds the table of held buckets, one layer a lane
+MAX_LAYERS = 32
+
+
 def check_stack_on_card(stack: BucketStack) -> None:
     """Raise ValueError unless the stack's arrays are what the bucket
-    kernel reads (see :func:`check_on_card`)."""
+    kernel reads: as :func:`check_on_card` says, but with ``meta`` 16 B
+    aligned as ``vals`` is (the kernel copies both into shared memory 16 B
+    a lane)."""
     dev = stack.device
     shape = tuple(stack.rbcb.shape)
     if len(shape) != 3 or shape[2] % ACC_GROUP:
@@ -179,13 +186,17 @@ def check_stack_on_card(stack: BucketStack) -> None:
     _check("meta", stack.meta, torch.uint16, (*shape, LANE), dev)
     _check("rbcb", stack.rbcb, torch.int32, shape, dev)
     _check("groups", stack.groups, torch.int32, shape[:2], dev)
-    if stack.vals.data_ptr() % 16 or stack.meta.data_ptr() % 8:
-        raise ValueError("vals must be 16 B aligned and meta 8 B aligned")
+    if stack.vals.data_ptr() % 16 or stack.meta.data_ptr() % 16:
+        raise ValueError("vals and meta must be 16 B aligned")
     if not 0 <= stack.n_groups * ACC_GROUP <= shape[2]:
         raise ValueError(f"n_groups {stack.n_groups} does not fit "
                          f"{shape[2]} micro-rows")
-    if shape[0] > 65535:
-        raise ValueError(f"{shape[0]} layers exceed the grid's second axis")
+    if shape[0] > MAX_LAYERS:
+        raise ValueError(f"{shape[0]} layers: the bucket kernel takes at most "
+                         f"{MAX_LAYERS} (a warp's lanes hold the layer table)")
+    if shape[0] * shape[1] * shape[2] >= 2 ** 31:
+        raise ValueError(f"{shape} micro-rows: the bucket kernel counts them "
+                         "in 32 bits")
 
 
 def in_range(nrows: int, ncols: int, window: int) -> bool:

@@ -17,9 +17,13 @@ Micro-block SpMV (counterpart of :func:`csr_tpu.ops.spmv.spmv`).
   ``A[l, held[l]] @ x[l]`` into ``y[l]`` for every layer ``l``, the bucket
   index read on the device.  :func:`spmv_bucket_reference` is its plain
   PyTorch version and :data:`bucket_launches` its launch count.
+  :func:`bucket_grid` is the kernel's grid and :func:`bucket_work` the
+  (layer, micro-row) pairs each of its blocks takes, in the kernel's order.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,6 +34,11 @@ from .microblock import (ACC_GROUP, LANE, BucketStack, MicroBlockLayout,
 launches = 0
 #: number of launches of the bucket-selecting CUDA kernel
 bucket_launches = 0
+#: blocks an SM of the bucket kernel's grid, and warps a block: the
+#: occupancy its one build was chosen for (PERF.md, PR 5), which
+#: chip_smoke's first phase asserts
+BLOCKS_PER_SM = 1
+WARPS_PER_BLOCK = 32
 
 
 def spmv_reference(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
@@ -147,6 +156,35 @@ def spmv_bucket_reference(stack: BucketStack, held: torch.Tensor,
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def bucket_grid(stack: BucketStack, sm_count: int) -> int:
+    """The bucket kernel's grid on a card of ``sm_count`` SMs:
+    :data:`BLOCKS_PER_SM` blocks an SM, but no more blocks than the held
+    buckets can have groups (the stack's layers times its largest group
+    count), which the host knows without reading ``held``."""
+    return min(BLOCKS_PER_SM * sm_count, stack.n_layers * stack.n_groups)
+
+
+def bucket_work(stack: BucketStack, held: torch.Tensor, grid: int) -> list:
+    """The work of each of the bucket kernel's ``grid`` blocks, in the
+    kernel's order, as lists of (layer, micro-row of the held bucket): the
+    held buckets' real micro-rows (``groups[l, held[l]]`` groups of 32 of
+    layer ``l``, none for a held index outside the stack's buckets) listed
+    layer by layer, in equal contiguous shares of ``ceil(micro-rows /
+    warps)`` to the grid's warps, :data:`WARPS_PER_BLOCK` a block in turn.
+    Plain Python for the tests; the kernel walks the same list on the
+    device."""
+    counts = stack.groups.tolist()
+    rows = [(l, r) for l, h in enumerate(held.tolist()) if 0 <= h < stack.n_buckets
+            for r in range(counts[l][h] * ACC_GROUP)]
+    block = -(-len(rows) // (grid * WARPS_PER_BLOCK)) * WARPS_PER_BLOCK
+    return [rows[b * block:(b + 1) * block] for b in range(grid)]
+
+
 def spmv_bucket(stack: BucketStack, held: torch.Tensor, x: torch.Tensor,
                 y: torch.Tensor) -> torch.Tensor:
     """``y[l] += A[l, held[l]] @ x[l]`` for every layer ``l`` of a stack of
@@ -154,10 +192,12 @@ def spmv_bucket(stack: BucketStack, held: torch.Tensor, x: torch.Tensor,
 
     ``held`` is (L,) int32, ``x`` (L, ncols) f32 and ``y`` (L, nrows) f32,
     all on the stack's device.  On CUDA tensors one launch of
-    ``csrc/spmv_bucket.cu`` serves all layers: each block reads its
-    layer's ``held`` entry from device memory, so the host never reads it
-    and no bucket is copied.  On CPU tensors :func:`spmv_bucket_reference`
-    runs.  A build or launch failure raises."""
+    ``csrc/spmv_bucket.cu`` on :func:`bucket_grid` blocks serves all
+    layers: each warp reads ``held`` and the held buckets' group counts
+    from device memory and takes its share of their micro-rows
+    (:func:`bucket_work`), so the host never reads ``held`` and no bucket
+    is copied.  On CPU tensors :func:`spmv_bucket_reference` runs.  A
+    build or launch failure raises."""
     global bucket_launches
     dev = stack.device
     if dev.type == "cpu":
@@ -174,7 +214,7 @@ def spmv_bucket(stack: BucketStack, held: torch.Tensor, x: torch.Tensor,
 
     with torch.cuda.device(dev):
         _cuda.spmv_bucket(stack.vals, stack.meta, stack.rbcb, held,
-                          stack.groups, x, y, stack.n_groups,
+                          stack.groups, x, y, bucket_grid(stack, _sm_count(dev)),
                           stack.epos_shift, stack.nrows)
     bucket_launches += 1
     return y

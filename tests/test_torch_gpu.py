@@ -265,6 +265,83 @@ def test_bucket_kernel_matches_reference_on_card(window, cuda_device):
         spmv.spmv_bucket(rmb.stack, mesh.held[0].cpu(), x, y0.clone())
 
 
+def _stack_of(mats, window, device):
+    """A BucketStack of ``len(mats)`` layers by ``len(mats[0])`` buckets
+    from scipy matrices of one shape, each bucket zero-padded to the
+    largest as the ring pads them."""
+    layouts = [[mb.build_microblocks_host(*a.shape, a.indptr, a.indices, a.data,
+                                          window=window, device="cpu")
+                for a in row] for row in mats]
+    n_layers, n_buckets = len(mats), len(mats[0])
+    m_pad = max(lay.vals.shape[0] for row in layouts for lay in row)
+    vals = torch.zeros(n_layers, n_buckets, m_pad, 128)
+    meta = torch.zeros(n_layers, n_buckets, m_pad, 128, dtype=torch.uint16)
+    rbcb = torch.zeros(n_layers, n_buckets, m_pad, dtype=torch.int32)
+    groups = torch.zeros(n_layers, n_buckets, dtype=torch.int32)
+    for l, row in enumerate(layouts):
+        for b, lay in enumerate(row):
+            m = lay.vals.shape[0]
+            vals[l, b, :m], meta[l, b, :m], rbcb[l, b, :m] = lay.vals, lay.meta, lay.rbcb
+            groups[l, b] = lay.n_microrows // mb.ACC_GROUP
+    nrows, ncols = mats[0][0].shape
+    return mb.BucketStack(nrows, ncols, window, vals.to(device), meta.to(device),
+                          rbcb.to(device), groups.to(device), int(groups.max()))
+
+
+@pytest.mark.parametrize("n_layers,n_buckets,grid", [
+    (1, 3, "card"), (1, 3, "one block"), (7, 7, "card"), (7, 7, "four blocks"),
+    (7, 7, "one block")])
+def test_bucket_kernel_corners_on_card(n_layers, n_buckets, grid, cuda_device,
+                                       monkeypatch):
+    """The persistent loop against its plain version: a one-layer stack
+    and a D = 7 one, on the card's grid (a micro-row a warp at most) and on
+    four blocks and one (many micro-rows a warp: each warp's ring of
+    stages in shared memory streams across groups, row windows and
+    layers); every held bucket in turn, held indices outside the stack for
+    some layers only, every held bucket empty (no micro-row at all);
+    always adding into a non-zero y."""
+    if grid != "card":
+        monkeypatch.setattr(spmv, "_sm_count", lambda dev: 1 if "one" in grid else 4)
+        monkeypatch.setattr(spmv, "BLOCKS_PER_SM", 1)
+    # bucket (l + 1) % B of layer l is empty
+    empty = [(l + 1) % n_buckets for l in range(n_layers)]
+    mats = [[random_matrix(1024, 768, 0.0 if b == empty[l]
+                           else 0.01 * (1 + (l + b) % 4), seed=7 * l + b,
+                           big_group=b == 0 != empty[l])
+             for b in range(n_buckets)] for l in range(n_layers)]
+    stack = _stack_of(mats, 256 if n_layers > 1 else 128, cuda_device)
+    rng = np.random.default_rng(n_layers)
+    x = rng.uniform(-1, 1, (n_layers, 768)).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    y0 = torch.from_numpy(rng.uniform(-1, 1, (n_layers, 1024))
+                          .astype(np.float32)).to(cuda_device)
+    layers = range(n_layers)
+    helds = [[(l + k) % n_buckets for l in layers] for k in range(n_buckets)]
+    helds.append([(-1, n_buckets, 0)[l % 3] for l in layers])
+    helds.append(empty)
+    blocks = spmv.bucket_grid(stack, spmv._sm_count(cuda_device))
+    work = spmv.bucket_work(stack, torch.tensor(helds[0]), blocks)
+    per_warp = -(-max(map(len, work)) // spmv.WARPS_PER_BLOCK)
+    assert (per_warp > 1) == (grid != "card")
+    for held in helds:
+        hd = torch.tensor(held, dtype=torch.int32, device=cuda_device)
+        before = spmv.bucket_launches
+        y = spmv.spmv_bucket(stack, hd, xd, y0.clone())
+        y_ref = spmv.spmv_bucket_reference(stack, hd, xd, y0.clone())
+        torch.cuda.synchronize()
+        assert spmv.bucket_launches == before + 1
+        # f32 sums in another order: rtol 1e-4, as the SpMV bound's
+        # relative part
+        torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+        for l, h in enumerate(held):
+            a = mats[l][h] if 0 <= h < n_buckets else None
+            if a is None or a.nnz == 0:
+                assert torch.equal(y[l], y0[l]), (held, l)
+            else:
+                assert_spmv_close((y[l] - y0[l]).cpu().numpy(),
+                                  a.astype(np.float64) @ x[l], Scipy(a), x[l])
+
+
 @pytest.mark.parametrize("n_shards", [1, 4, 7])
 def test_ring_and_dist_on_card(n_shards, cuda_device):
     """The ring and ``mb_dist`` in the local form on the card, against

@@ -6,6 +6,8 @@ on 8 virtual devices and against scipy.  Micro-block products are held
 to ``assert_spmv_close`` (eps_mult 384, unchanged); the portable ring to
 ``tests/test_distributed.py``'s rtol 1e-4, atol 1e-3."""
 
+import functools
+
 import numpy as np
 import pytest
 import scipy.sparse as sps
@@ -151,6 +153,81 @@ def test_bucket_wrapper_rejects_bad_operands():
     out = spmv.spmv_bucket(stack, torch.tensor([4, -1, 9, 7], dtype=torch.int32),
                            torch.ones(L, cols), torch.zeros(L, rows))
     assert not out.any()
+
+
+@functools.lru_cache(maxsize=None)
+def _bucket_stack():
+    stack = _bucket_case()[1].stack
+    assert (stack.groups == 0).any() and stack.n_layers == stack.n_buckets == 4
+    return stack
+
+
+@pytest.mark.parametrize("held", [(0, 1, 2, 3), (3, 0, 1, 2), (4, -1, 2, 0),
+                                  (9, -3, 4, 7)])
+@pytest.mark.parametrize("grid", [1, 3, 1000])
+def test_bucket_work_takes_each_real_microrow_once(grid, held):
+    """The blocks' micro-rows are those of the real groups of the held
+    buckets (none of an empty bucket or of an index outside the stack),
+    each once, listed layer by layer and dealt out to the warps in
+    contiguous shares of ceil(micro-rows / warps), a block's warps in
+    turn."""
+    stack = _bucket_stack()
+    work = spmv.bucket_work(stack, torch.tensor(held, dtype=torch.int32), grid)
+    assert len(work) == grid
+    groups = stack.groups.tolist()
+    real = [(l, r) for l, h in enumerate(held) if 0 <= h < 4
+            for r in range(groups[l][h] * mb.ACC_GROUP)]
+    taken = [row for rows in work for row in rows]
+    assert sorted(taken) == real and len(set(taken)) == len(taken)
+    warps = grid * spmv.WARPS_PER_BLOCK
+    block = -(-len(real) // warps) * spmv.WARPS_PER_BLOCK
+    for b, rows in enumerate(work):
+        assert rows == real[b * block:(b + 1) * block]
+    # every block but the last ones busy takes a whole share
+    sizes = [len(rows) for rows in work]
+    assert sizes == sorted(sizes, reverse=True) and max(sizes) == min(block, len(real))
+
+
+def test_bucket_grid_fills_the_card_and_caps_at_the_stack():
+    stack = _bucket_stack()
+    cap = stack.n_layers * stack.n_groups
+    assert spmv.bucket_grid(stack, 132) == min(spmv.BLOCKS_PER_SM * 132, cap)
+    assert spmv.bucket_grid(stack, 1) == min(spmv.BLOCKS_PER_SM, cap)
+    # the cap is never below the groups a held vector can give
+    for held in range(4):
+        h = torch.full((4,), held, dtype=torch.int32)
+        work = spmv.bucket_work(stack, h, cap)
+        assert sum(map(len, work)) <= cap * mb.ACC_GROUP
+
+
+def test_stack_checks_for_the_card():
+    """What the bucket kernel cannot take raises before a launch: more
+    layers than a warp has lanes, metadata off a 16 B boundary, 2^31
+    micro-rows or more."""
+    stack = _bucket_stack()
+    mb.check_stack_on_card(stack)
+    n = mb.MAX_LAYERS + 1
+    wide = mb.BucketStack(128, 128, 128, torch.zeros(n, 1, 32, 128),
+                          torch.zeros(n, 1, 32, 128, dtype=torch.uint16),
+                          torch.zeros(n, 1, 32, dtype=torch.int32),
+                          torch.zeros(n, 1, dtype=torch.int32), 0)
+    with pytest.raises(ValueError, match="layers"):
+        mb.check_stack_on_card(wide)
+    shifted = torch.zeros(stack.meta.numel() + 4, dtype=torch.uint16)
+    meta = shifted[4:].view(stack.meta.shape)
+    assert meta.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16 B"):
+        mb.check_stack_on_card(mb.BucketStack(
+            stack.nrows, stack.ncols, stack.window, stack.vals, meta,
+            stack.rbcb, stack.groups, stack.n_groups))
+    # the kernel counts micro-rows in 32 bits (tensors with no storage)
+    big = (1, 1, 2 ** 31)
+    with pytest.raises(ValueError, match="32 bits"):
+        mb.check_stack_on_card(mb.BucketStack(
+            128, 128, 128, torch.empty(*big, 128, device="meta"),
+            torch.empty(*big, 128, dtype=torch.uint16, device="meta"),
+            torch.empty(big, dtype=torch.int32, device="meta"),
+            torch.empty(1, 1, dtype=torch.int32, device="meta"), 0))
 
 
 def _ring_both(a, x, n_shards, structure_only=False):
