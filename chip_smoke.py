@@ -5,7 +5,7 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
 It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
 ``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
-runs sixteen phases; any failure raises and the script exits nonzero.  It
+runs eighteen phases; any failure raises and the script exits nonzero.  It
 needs a CUDA device and never falls back to the CPU: every matrix is
 built with no device named and must land on the card.
 
@@ -76,6 +76,25 @@ built with no device named and must land on the card.
     card could take: the CSR form (8 B an entry plus row pointers), the
     operand and the result moved once at the published bandwidth, or
     2 nnz n operations at the published f32 rate, whichever is larger.
+17. lenskit's item-item path at the MovieLens-25M shape (repeated pairs
+    summed: 24,463,578 ratings): ``Rt = R.transpose()`` against scipy's
+    ``R.T`` (equal arrays), ``normalize_rows("center")`` then ``"unit"``
+    against numpy, and the similarities of the first 1,024 items,
+    ``blk.multiply(Rt, transpose=True)`` and ``blk.multiply(R)``: past
+    the dense budget, so both take the ``esc`` route; against scipy's
+    products (structure and values), then ``filter_nnzs(S.values > 0)``
+    and ``sort_rows()``.  Expanded terms, chunks, entries, the time of a
+    product (CUDA events), scipy's on the host, ``torch.sparse.mm`` of the
+    same CSR tensors (timed only) and ESC's chunk budget at 2^24, 2^26
+    and 2^28 terms.
+18. ``spmv_large``: ``mult_vec`` of a 4,300,000 x 4,096 matrix with 8
+    power-law entries a row (past the packer's 32767 row windows: 2
+    chunks, 2 launches) against scipy, each panel's launch against
+    ``spmv_reference``, ``mult_vec_t`` on the in-range transpose; then
+    the flagship with the budget cut to 64 windows (4 x 4 panels, 16
+    launches) against the unsplit ``mult_vec`` and scipy; and the
+    layout's fill and bytes an entry on 131,072-row samples, hypersparse
+    (12 entries a row over 1M and 4M columns) and not.
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
@@ -163,10 +182,12 @@ def spmm_share(c, ref, rtol=SPMM_RTOL, atol=SPMM_ATOL) -> float:
     return share
 
 
-def product_share(got, ref) -> float:
+def product_share(got, ref, scaled=False) -> float:
     """Largest entry of |got - ref| as a share of tests/util.py:tols' f32
     bound (PROD_RTOL * |ref| + PROD_ATOL), over both sparse patterns;
-    raises if it exceeds the bound."""
+    with ``scaled`` the atol is PROD_ATOL times max(1, max |ref|), as
+    tests/util.py:dense_tols and tests/torch_util.py:assert_product_close
+    scale it.  Raises if it exceeds the bound."""
     got = sps.csr_matrix(got, dtype=np.float64)
     ref = sps.csr_matrix(ref, dtype=np.float64)
     assert got.shape == ref.shape, (got.shape, ref.shape)
@@ -174,7 +195,18 @@ def product_share(got, ref) -> float:
     diff = abs(got - ref).tocoo()
     if diff.nnz == 0:
         return 0.0
-    tol = PROD_RTOL * np.abs(np.asarray(ref[diff.row, diff.col]).ravel()) + PROD_ATOL
+    atol = PROD_ATOL * (max(1.0, np.abs(ref.data).max(initial=0)) if scaled else 1.0)
+    # |ref| at each coordinate of the difference: a search of the sorted
+    # keys (scipy's ref[rows, cols] takes minutes at 10^7 coordinates)
+    ref.sum_duplicates()
+    ncols = ref.shape[1]
+    key_ref = np.repeat(np.arange(ref.shape[0], dtype=np.int64),
+                        np.diff(ref.indptr)) * ncols + ref.indices
+    key = diff.row.astype(np.int64) * ncols + diff.col
+    at = np.minimum(np.searchsorted(key_ref, key), max(ref.nnz - 1, 0))
+    ref_at = (np.where(key_ref[at] == key, ref.data[at], 0.0) if ref.nnz
+              else np.zeros(diff.nnz))
+    tol = PROD_RTOL * np.abs(ref_at) + atol
     share = float(np.max(diff.data / tol))
     assert share <= 1.0, f"product outside the bound: share {share:.3g}"
     return share
@@ -1331,6 +1363,366 @@ def phase_library(tag, a, layout, x, b, card, iters, mm_iters):
     return out
 
 
+def on_card(*mats):
+    """Assert that every matrix landed on the card."""
+    for m in mats:
+        assert m.device.type == "cuda", m.device
+
+
+def host_csr(c):
+    """A port CSR as a scipy matrix (its arrays copied from the card)."""
+    return sps.csr_matrix(
+        (c.values.cpu().numpy(), c.colinds.cpu().numpy(),
+         c.rowptrs.cpu().numpy()), shape=(c.nrows, c.ncols))
+
+
+def row_stats(a, center):
+    """Per-row mean (``center``) or Euclidean norm of a scipy CSR's stored
+    values, and the values centred or scaled to unit rows, in f64 on the
+    host (empty rows: 0; a row of zeros stays zero)."""
+    counts = np.diff(a.indptr)
+    rows = np.repeat(np.arange(a.shape[0]), counts)
+    v = a.data.astype(np.float64)
+    if center:
+        stat = np.bincount(rows, v, a.shape[0]) / np.maximum(counts, 1)
+        return stat, v - stat[rows]
+    stat = np.sqrt(np.bincount(rows, v * v, a.shape[0]))
+    return stat, v / np.where(stat > 0, stat, 1.0)[rows]
+
+
+def check_sorted_rows(c):
+    """Every row of a port CSR holds strictly increasing columns."""
+    rp = c.rowptrs.cpu().numpy()
+    ci = c.colinds.cpu().numpy().astype(np.int64)
+    inner = np.ones(len(ci), bool)
+    inner[rp[1:-1][rp[1:-1] < len(ci)]] = False  # a row's first entry
+    assert np.all(np.diff(ci)[inner[1:]] > 0), "rows not sorted or not unique"
+
+
+def print_profile(tag, fn, top=12):
+    """The device time of one call of ``fn`` (``torch.profiler``, after a
+    warm-up call), summed by kernel name, the largest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    times = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = times.get(e.name, (0, 0.0))
+            times[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    total = sum(us for _, us in times.values()) / 1e3
+    print(f"[{tag}] profile of one call: {total:.3f} ms of device time in "
+          f"{wall_ms:.3f} ms (profiled)")
+    for name, (n, us) in sorted(times.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"[{tag}]   {us / 1e3:9.3f} ms x{n} {name[:90]}")
+
+
+def phase_item_item(ml, card, block=1024):
+    """[17] lenskit's item-item kNN at the MovieLens-25M shape: the rating
+    matrix R (repeated (user, item) pairs summed: one rating a pair),
+    ``Rt = R.transpose()``, its rows centred and scaled to unit length,
+    then the similarities of the first 1,024 items with all of them, a
+    block at a time as lenskit computes them: ``blk.multiply(Rt,
+    transpose=True)`` (and ``blk.multiply(R)``), past the dense budget and
+    so on ESC; then the positive similarities, rows sorted.  Every step
+    against scipy or numpy on the host.  Returns the ESC numbers."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import _listeners, use_kernel
+    from csr_tpu_torch.ops import spgemm
+
+    nrows, ncols, rowptr, cols, vals = ml[:5]
+    a = sps.csr_matrix((vals, cols, rowptr), shape=(nrows, ncols))
+    a.sum_duplicates()
+    R = CSR(nrows, ncols, a.nnz, a.indptr, a.indices, a.data)
+    on_card(R)
+    t0 = time.perf_counter()
+    Rt = R.transpose()
+    torch.cuda.synchronize()
+    t_tr = time.perf_counter() - t0
+    at = a.T.tocsr()
+    on_card(Rt)
+    assert (Rt.nrows, Rt.ncols, Rt.nnz) == (ncols, nrows, a.nnz)
+    for name, got, want in (("rowptrs", Rt.rowptrs, at.indptr),
+                            ("colinds", Rt.colinds, at.indices),
+                            ("values", Rt.values, at.data)):
+        assert np.array_equal(got.cpu().numpy(), want), f"transpose {name}"
+    print(f"[17] R {nrows}x{ncols}, {a.nnz} ratings (repeats summed); "
+          f"R.transpose() {t_tr:.4f} s: rowptrs, colinds and values equal "
+          "scipy's R.T")
+
+    ref_vals = at.data
+    for norm in ("center", "unit"):
+        stat = Rt.normalize_rows(norm)
+        want_stat, ref_vals = row_stats(
+            sps.csr_matrix((ref_vals, at.indices, at.indptr), shape=at.shape),
+            norm == "center")
+        got = Rt.values.cpu().numpy().astype(np.float64)
+        for what, g, w in (("values", got, ref_vals),
+                           ("stat", stat.cpu().numpy(), want_stat)):
+            err = np.abs(g - w)
+            bad = err > PROD_RTOL * np.abs(w) + PROD_ATOL
+            assert not bad.any(), (norm, what, np.flatnonzero(bad)[:5])
+        print(f"[17] Rt.normalize_rows({norm!r}): values and per-row "
+              f"{'means' if norm == 'center' else 'norms'} within tols of "
+              f"numpy (max abs err {np.abs(got - ref_vals).max():.3g})")
+
+    blk = Rt.subset_rows(0, block)
+    rt_h = host_csr(Rt)
+    blk_h = rt_h[:block]
+    events = []
+    _listeners.append(lambda e, f: events.append((e, f)))
+    try:
+        with use_kernel("cuda"):
+            t0 = time.perf_counter()
+            S = blk.multiply(Rt, transpose=True)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            S2 = blk.multiply(R)
+    finally:
+        _listeners.pop()
+    routes = [f["route"] for e, f in events if e == "spgemm"]
+    esc = [f for e, f in events if e == "esc"]
+    assert routes == ["esc", "esc"], routes
+    on_card(S, S2)
+    t0 = time.perf_counter()
+    ref = blk_h @ rt_h.T
+    scipy_s = time.perf_counter() - t0
+    ref2 = blk_h @ a
+    out = {"terms": esc[0]["terms"], "chunks": esc[0]["chunks"],
+           "nnz": S.nnz, "scipy_s": scipy_s, "first_s": first}
+    for tag, c, r in (("blk.multiply(Rt, transpose=True)", S, ref),
+                      ("blk.multiply(R)", S2, ref2)):
+        r.sum_duplicates()
+        r.eliminate_zeros()
+        check_sorted_rows(c)
+        got = host_csr(c)
+        assert np.all(got.data != 0), "stored zeros"
+        share = product_share(got, r, scaled=True)
+        pat = abs(abs(got.sign()) - abs(r.sign())).nnz  # in one pattern only
+        print(f"[17] {tag}: {c.nrows}x{c.ncols}, {c.nnz} entries (scipy "
+              f"{r.nnz}, {pat} coordinates in one pattern only); share of "
+              f"the scale-aware tols bound vs scipy {share:.3g}")
+    print(f"[17] ESC: {out['terms']} product terms in {out['chunks']} "
+          f"chunk(s) of at most {spgemm.esc_chunk_entries}, {S.nnz} entries "
+          f"out; first call {first:.3f} s (the transpose of Rt included)")
+
+    def product():
+        with use_kernel("cuda"):
+            return blk.multiply(Rt, transpose=True)
+
+    ms, host_ms = per_call(product, iters=3)
+    out["ms"] = ms
+    print_profile("17", product)
+    print(f"[17] one product {ms:.3f} ms between CUDA events after a warm-up "
+          f"({out['terms'] / ms / 1e6:.4f} G terms/s); scipy on the card's "
+          f"host {scipy_s * 1e3:.1f} ms ({out['terms'] / scipy_s / 1e9:.4f} G "
+          f"terms/s); card {card}")
+
+    # the yardstick, timed only: torch.sparse.mm of the same two CSR
+    # tensors (the block and Rt^T, that is the normalised R)
+    lib_a, lib_b = blk.to_torch_sparse(), Rt.transpose().to_torch_sparse()
+    try:
+        lib_ms, _ = per_call(lambda: torch.sparse.mm(lib_a, lib_b), iters=3)
+        lib_nnz = torch.sparse.mm(lib_a, lib_b)._nnz()
+        out["library_ms"] = lib_ms
+        print(f"[17] torch.sparse.mm of the same CSR tensors: {lib_ms:.3f} ms "
+              f"a product ({lib_nnz} entries stored)")
+    except RuntimeError as e:  # out of memory among them: recorded, not hidden
+        out["library_ms"] = None
+        out["library_error"] = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+        print(f"[17] torch.sparse.mm of the same CSR tensors failed: "
+              f"{out['library_error']}")
+    del lib_a, lib_b
+    torch.cuda.empty_cache()
+
+    # the chunk budget: each value in turns, the result unchanged
+    saved = spgemm.esc_chunk_entries
+    sweep = {}
+    for budget in (2**24, 2**26, 2**28, 2**28, 2**26, 2**24):
+        spgemm.esc_chunk_entries = budget
+        torch.cuda.reset_peak_memory_stats()
+        chunks = []
+        _listeners.append(lambda e, f: chunks.append(f["chunks"]) if e == "esc" else None)
+        try:
+            t, _ = per_call(product, iters=3)
+        finally:
+            _listeners.pop()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check = ""
+        if budget not in sweep:  # the product at each budget, once
+            check = (f", share of bound vs scipy "
+                     f"{product_share(host_csr(product()), ref, scaled=True):.3g}")
+        sweep.setdefault(budget, []).append(t)
+        print(f"[17] esc_chunk_entries 2^{budget.bit_length() - 1}: "
+              f"{chunks[-1]} chunks, {t:.3f} ms a product, peak "
+              f"{peak:.2f} GiB allocated{check}")
+    spgemm.esc_chunk_entries = saved
+    out["sweep_ms"] = {f"2^{b.bit_length() - 1}": v for b, v in sweep.items()}
+
+    F = S.filter_nnzs(S.values > 0)
+    F.sort_rows()
+    check_sorted_rows(F)
+    assert F.nnz == int((S.values > 0).sum()) and bool((F.values > 0).all())
+    ref.data[ref.data <= 0] = 0
+    ref.eliminate_zeros()
+    share = product_share(host_csr(F), ref, scaled=True)
+    print(f"[17] S.filter_nnzs(S.values > 0).sort_rows(): {F.nnz} of "
+          f"{S.nnz} entries; share of bound vs scipy's positive entries "
+          f"{share:.3g}")
+    return out
+
+
+def power_law_rows(nrows, ncols, per_row, seed):
+    """Host CSR arrays of an ``nrows x ncols`` f32 matrix with ``per_row``
+    entries a row, columns drawn with power-law popularity (exponent 0.6
+    over a random permutation of the ids, as movielens_shape draws items;
+    repeats kept), values standard normal, from a seed."""
+    rng = np.random.default_rng(seed)
+    nnz = nrows * per_row
+    rowptr = np.arange(nrows + 1, dtype=np.int64) * per_row
+    pop = np.arange(1, ncols + 1, dtype=np.float64) ** -0.6
+    cdf = np.cumsum(pop / pop.sum())
+    rank = np.minimum(np.searchsorted(cdf, rng.random(nnz)), ncols - 1)
+    cols = rng.permutation(ncols).astype(np.int32)[rank]
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return rowptr, cols, vals
+
+
+def layout_fill(nrows=131_072):
+    """Fill and layout bytes an entry of the micro-block layout, packed on
+    the host, for ``nrows``-row samples with power-law column popularity:
+    hypersparse (12 entries a row over 1M and 4M columns) against the
+    shape of phase 18 (8 over 4,096) and a denser one (16 over 8,192)."""
+    from csr_tpu_torch.ops import microblock
+
+    for per_row, ncols in ((12, 1 << 20), (12, 1 << 22), (8, 4096), (16, 8192)):
+        rp, ci, v = power_law_rows(nrows, ncols, per_row, seed=per_row + ncols)
+        lay = microblock.build_microblocks_host(nrows, ncols, rp, ci, v,
+                                                device="cpu")
+        print(f"[18] layout of {nrows} rows, {per_row} entries a row over "
+              f"{ncols} columns: window {lay.window} pair {lay.pair}, fill "
+              f"{lay.fill:.4f}, {lay.nbytes / len(ci):.1f} B a stored entry")
+        del lay
+
+
+def check_panels(tag, chunks, a, x):
+    """Each panel's SpMV kernel launch against ``spmv_reference`` on the
+    panel's slice of ``x``, within the SpMV bound of the panel's block of
+    ``a``.  Returns the largest absolute difference."""
+    from csr_tpu_torch.ops import microblock, spmv as spmv_op
+
+    xd = torch.from_numpy(x).cuda()
+    worst, r0 = 0.0, 0
+    for cn, panels in chunks:
+        for cb_off, layout in panels:
+            c0 = cb_off * microblock.LANE
+            xs = xd[c0 : c0 + layout.ncols]
+            y, y_ref = spmv_op.spmv(layout, xs), spmv_op.spmv_reference(layout, xs)
+            torch.cuda.synchronize()
+            worst = max(worst, float((y - y_ref).abs().max()))
+            spmv_share(y, y_ref.cpu().numpy(),
+                       a[r0 : r0 + cn, c0 : c0 + layout.ncols],
+                       x[c0 : c0 + layout.ncols])
+            del y, y_ref
+        r0 += cn
+    print(f"[18] {tag}: every panel's launch within the SpMV bound of "
+          f"spmv_reference, max abs err {worst:.3g}")
+    return worst
+
+
+def phase_large(fl_csr, fl_a, x_fl, card, nrows=4_300_000, ncols=4096,
+                windows=64):
+    """[18] ``spmv_large``: a 4,300,000 x 4,096 matrix with 8 entries a row
+    (past the packer's 32767 row windows, so 2 row chunks), ``mult_vec``
+    against scipy and each panel's launch against ``spmv_reference``, and
+    ``mult_vec_t`` on the in-range transpose; then the flagship of phase 3
+    with the budget cut to 64 windows: 4 chunks x 4 panels, 16 launches,
+    against the unsplit ``mult_vec`` and scipy.  Returns the panel
+    launches of both runs and the largest kernel-vs-plain difference."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import _listeners, cuda as cuda_k, use_kernel
+    from csr_tpu_torch.ops import spmv as spmv_op
+
+    per_row = 8
+    rowptr, cols, vals = power_law_rows(nrows, ncols, per_row, seed=18)
+    a = sps.csr_matrix((vals, cols, rowptr), shape=(nrows, ncols))
+    csr = CSR(nrows, ncols, len(cols), rowptr, cols, vals)
+    on_card(csr)
+    rng = np.random.default_rng(180)
+    x = rng.standard_normal(ncols).astype(np.float32)
+    xt = rng.standard_normal(nrows).astype(np.float32)
+    xd, xtd = torch.from_numpy(x).cuda(), torch.from_numpy(xt).cuda()
+    builds = []
+    _listeners.append(lambda e, f: builds.append(f) if e == "layout-build-large" else None)
+    try:
+        with use_kernel("cuda"):
+            spmv_op.launches = 0
+            t0 = time.perf_counter()
+            y = csr.mult_vec(xd)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            large = spmv_op.launches
+            yt = csr.mult_vec_t(xtd)
+            torch.cuda.synchronize()
+    finally:
+        _listeners.pop()
+    assert large == 2, large
+    (built,) = builds
+    share = spmv_share(y, a.astype(np.float64) @ x, a, x)
+    at = a.T.tocsr()
+    share_t = spmv_share(yt, at.astype(np.float64) @ xt, at, xt)
+    chunks = cuda_k._cached_large(csr, False)
+    assert [len(p) for _, p in chunks] == [1, 1], chunks
+    err = check_panels("4.3M rows", chunks, a, x)
+    with use_kernel("cuda"):
+        ms, host_ms = per_call(lambda: csr.mult_vec(xd), iters=20)
+    fill = len(cols) / sum(lay.n_microrows * 128 for _, p in chunks for _, lay in p)
+    print(f"[18] mult_vec of {nrows}x{ncols} ({len(cols)} entries): "
+          f"{built['chunks']} chunks, {built['panels']} panels, {large} "
+          f"launches, layouts {built['bytes']} B (fill {fill:.4f}); first call "
+          f"{secs:.2f} s (host packing included); {ms:.5f} ms a product "
+          f"between CUDA events (host {host_ms:.5f} ms); share of bound vs "
+          f"scipy {share:.3g}; mult_vec_t on the in-range transpose: share "
+          f"{share_t:.3g}; card {card}")
+    del csr, chunks, y, yt, xtd, a, at
+    torch.cuda.empty_cache()
+
+    layout_fill()
+
+    # the panel path at the flagship: the budget cut to 64 windows
+    xf = torch.from_numpy(x_fl).cuda()
+    with use_kernel("cuda"):
+        y_unsplit = fl_csr.mult_vec(xf)
+        saved = cuda_k._LARGE_WINDOWS
+        cuda_k._LARGE_WINDOWS = windows
+        spmv_op.launches = 0
+        y = fl_csr.mult_vec(xf)
+        torch.cuda.synchronize()
+        panels = spmv_op.launches
+        ms_large, _ = per_call(lambda: fl_csr.mult_vec(xf), iters=50)
+        cuda_k._LARGE_WINDOWS = saved
+        ms_unsplit, _ = per_call(lambda: fl_csr.mult_vec(xf), iters=50)
+    assert panels == 16, panels
+    chunks = cuda_k._cached_large(fl_csr, False)
+    assert [len(p) for _, p in chunks] == [4] * 4, [len(p) for _, p in chunks]
+    share_u = spmv_share(y, y_unsplit.cpu().numpy().astype(np.float64), fl_a, x_fl)
+    share = spmv_share(y, fl_a.astype(np.float64) @ x_fl, fl_a, x_fl)
+    err = max(err, check_panels("flagship, 4 x 4 panels", chunks, fl_a, x_fl))
+    print(f"[18] flagship with _LARGE_WINDOWS {windows}: 4 chunks x 4 panels, "
+          f"{panels} launches; share of bound vs the unsplit mult_vec "
+          f"{share_u:.3g}, vs scipy {share:.3g}; {ms_large:.5f} ms a product "
+          f"against {ms_unsplit:.5f} ms unsplit")
+    return {"large_launches": large, "large_launches_flagship_panels": panels,
+            "large_max_abs_err": err}
+
+
 def main():
     card = phase_environment()
     phase_kernel_vs_plain()
@@ -1437,6 +1829,11 @@ def main():
     lib_ml = phase_library("16", ml_a, cuda_k._cached_layout(ml_csr), ml[5],
                            bd_ml, card, iters=100, mm_iters=10)
 
+    # the item-item path through ESC, and spmv_large (its launches are
+    # counted from 0 inside the phase, after the count above was read)
+    item_item = phase_item_item(ml, card)
+    large = phase_large(fl_csr, fl_a, fl[5], card)
+
     def yardsticks(name):
         """Device times, the bound and the chained times at the flagship,
         and the kernel's and the library's device time at the MovieLens
@@ -1444,8 +1841,10 @@ def main():
         return dict(lib_fl[name], ms_movielens=lib_ml[name]["ms"],
                     library_ms_movielens=lib_ml[name]["library_ms"])
 
+    print(json.dumps({"esc_item_item": item_item}))
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=launches, max_abs_err=max_err, **yardsticks("SpMV")),
+        dict(KERNEL, launches=launches, max_abs_err=max_err, **large,
+             **yardsticks("SpMV")),
         dict(SPMM_KERNEL, launches=spmm_launches, max_abs_err=spmm_err,
              **yardsticks("SpMM")),
         dict(BUCKET_KERNEL, launches=bucket_launches, **bucket),

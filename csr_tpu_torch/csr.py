@@ -14,20 +14,22 @@ would cost a copy.
 The value array is optional: a structure-only matrix has implicit
 values of 1.0 (float32).
 
-The port so far holds the container, its conversions, SpMV in both
-directions, SpMM (``mult_dense``) and the dense-route SpGEMM
-(``multiply``).  The other methods of the JAX class are ROADMAP Queue 1
-item 7 and raise :class:`NotImplementedError` naming the item.
+The methods that work "in place" (``sort_rows``, ``normalize_rows``,
+``fill_values``, ``drop_values``, ``_filter_zeros``) bind new tensors
+and drop the host copies; they never write into the tensors they held.
+The ``cuda`` kernel caches its layouts on the identity of the three
+tensors, so a rebinding is what tells it that a cached layout is stale.
 """
 
 from __future__ import annotations
 
 import logging
+import warnings
 
 import numpy as np
 import torch
 
-from . import structure
+from . import _rows, structure
 from .dtypes import COLIND_DTYPE, INT32_MAX, VALUE_DTYPE, ptr_dtype
 from .kernels import default_device, get_kernel, releasing
 
@@ -51,10 +53,11 @@ def _require(cond, msg: str):
         raise ValueError(msg)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to csr_tpu_torch yet (ROADMAP Queue 1 {item})"
-    )
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype)).dtype
 
 
 class CSR:
@@ -72,7 +75,8 @@ class CSR:
     """
 
     __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_host",
-                 "_mb_layout_cache", "_mb_layout_t_cache", "_shard_cache")
+                 "_mb_layout_cache", "_mb_layout_t_cache", "_shard_cache",
+                 "_mb_large_cache", "_mb_large_t_cache")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True,
                  device=None):
@@ -211,7 +215,7 @@ class CSR:
         rps, cis, vs = structure.from_coo(nrows, rows, cols, vals)
         csr = cls(nrows, ncols, nnz, rps, cis, vs, device=device)
         if rpdtype is not None:
-            rpdtype = torch.from_numpy(np.zeros(0, rpdtype)).dtype
+            rpdtype = _torch_dtype(rpdtype)
             if nnz > torch.iinfo(rpdtype).max:
                 raise ValueError(f"rpdtype {rpdtype} cannot address {nnz} entries")
             csr.rowptrs = csr.rowptrs.to(rpdtype)
@@ -240,6 +244,43 @@ class CSR:
             vs = np.full(self.nnz, 1.0)
         return sps.csr_matrix((vs, cis, rps), shape=(self.nrows, self.ncols))
 
+    @classmethod
+    def from_torch_sparse(cls, t):
+        """A matrix from a 2-D torch sparse CSR or COO tensor, on its
+        device (the counterpart of the JAX class's ``from_bcoo``).  A CSR
+        tensor's arrays are taken as they are; a COO tensor is converted
+        by torch first, which sums repeated coordinates."""
+        _require(t.layout in (torch.sparse_csr, torch.sparse_coo)
+                 and t.ndim == 2 and t.dense_dim() == 0,
+                 f"expected a 2-D sparse CSR or COO tensor without dense"
+                 f" dimensions, got {t.layout} with shape {tuple(t.shape)}")
+        if t.layout == torch.sparse_coo:
+            t = t.to_sparse_csr()
+        nrows, ncols = t.shape
+        cis = t.col_indices()
+        return cls(nrows, ncols, cis.shape[0], t.crow_indices(), cis, t.values())
+
+    def to_torch_sparse(self, layout=torch.sparse_csr):
+        """The matrix as a torch sparse tensor on its device: CSR (its own
+        arrays, row pointers and column indices in one index dtype) or
+        COO (``layout=torch.sparse_coo``), structure-only matrices with
+        ones.  The COO form is not coalesced: a matrix may hold unsorted
+        rows and repeated coordinates, and torch sums those when it
+        coalesces."""
+        vs = self._required_values()
+        shape = (self.nrows, self.ncols)
+        if layout == torch.sparse_coo:
+            idx = torch.stack([self.rowinds().to(torch.int64),
+                               self.colinds.to(torch.int64)])
+            return torch.sparse_coo_tensor(idx, vs, shape, is_coalesced=False,
+                                           check_invariants=False)
+        _require(layout == torch.sparse_csr, f"layout {layout}: expected"
+                 " torch.sparse_csr or torch.sparse_coo")
+        idx = torch.promote_types(self.rowptrs.dtype, self.colinds.dtype)
+        return torch.sparse_csr_tensor(self.rowptrs.to(idx),
+                                       self.colinds.to(idx), vs, shape,
+                                       check_invariants=False)
+
     # -- implicit-value helpers -------------------------------------------
 
     def _required_values(self):
@@ -248,6 +289,32 @@ class CSR:
         if vs is None:
             return torch.ones(self.nnz, dtype=VALUE_DTYPE, device=self.device)
         return vs
+
+    def _e_value(self, i):
+        """Value of entry ``i``, 1.0 for a structure-only matrix."""
+        vs = self.values
+        return 1.0 if vs is None else vs[i]
+
+    def _normalize(self, val_dtype=np.float64, ptr_dtype=None):
+        """A matrix of this one's structure in predictable dtypes: values
+        in ``val_dtype`` (ones for a structure-only matrix), none if it is
+        False, this matrix's if it is None; row pointers in ``ptr_dtype``
+        if given.  f64 stays f64."""
+        rps = self.rowptrs
+        if ptr_dtype:
+            ptr_dtype = _torch_dtype(ptr_dtype)
+            if self.nnz > torch.iinfo(ptr_dtype).max:
+                raise ValueError(f"type {ptr_dtype} cannot address {self.nnz}"
+                                 " entries")
+            rps = rps.to(ptr_dtype)
+        if val_dtype:
+            vs = self._required_values().to(_torch_dtype(val_dtype))
+        elif val_dtype is False:
+            vs = None
+        else:
+            vs = self.values
+        return CSR(self.nrows, self.ncols, self.nnz, rps, self.colinds, vs,
+                   _cast=False)
 
     def copy(self, include_values=True, *, copy_structure=True):
         """A copy of this matrix, sharing the structure tensors unless
@@ -272,9 +339,115 @@ class CSR:
             out._host = structure.subset_rows_arrays(*self._host, begin, end)[:3]
         return out
 
+    def pick_rows(self, rows, *, include_values=True):
+        """Rows ``rows`` (repeats allowed) as a new matrix."""
+        rows = _as_tensor(rows, torch.int64, self.device)
+        inc = include_values and self.values is not None
+        rps, cis, vs, nnz = structure.pick_rows_arrays(self, rows, inc)
+        return CSR(len(rows), self.ncols, nnz, rps, cis, vs, _cast=False)
+
     def rowinds(self):
         """Row index of every stored entry (the COO row vector)."""
         return structure.row_ids_for(self)
+
+    def row(self, row):
+        """Row ``row`` (an int) or rows (a sequence) as dense tensors;
+        ones at the stored positions of a structure-only matrix."""
+        return _rows.row_array(self, row)
+
+    def row_mask(self, row):
+        """Boolean mask(s) of the stored columns of one or more rows."""
+        return _rows.row_mask(self, row)
+
+    def row_extent(self, row):
+        """``(start, end)`` of a row in the data arrays."""
+        return _rows.extent(self, row)
+
+    def row_cs(self, row):
+        """Column indices of a row's stored entries."""
+        return _rows.cs(self, row)
+
+    def row_vs(self, row):
+        """Stored values of a row; ones if structure-only."""
+        return _rows.vs(self, row)
+
+    def row_nnzs(self):
+        """Number of stored entries of each row."""
+        return torch.diff(self.rowptrs)
+
+    # -- structure ops -----------------------------------------------------
+
+    def sort_rows(self):
+        """Sort each row's entries by column, **in place** (new tensors
+        are bound; see the module docstring)."""
+        cis, vs = structure.sort_rows_arrays(self.rowptrs, self.colinds,
+                                             self.values, self.nrows)
+        self.colinds = cis
+        self._values = vs
+        self._host = None
+
+    def transpose(self, include_values=True):
+        """The transpose, on this matrix's device; within each of its rows
+        the entries come in increasing column order."""
+        vs = self.values if include_values else None
+        rps, cis, t_vs = structure.transpose_arrays(
+            self.rowptrs, self.colinds, vs, self.nrows, self.ncols)
+        return CSR(self.ncols, self.nrows, self.nnz, rps, cis, t_vs, _cast=False)
+
+    def transpose_structure(self):
+        """The transpose without values."""
+        return self.transpose(False)
+
+    def filter_nnzs(self, filt):
+        """A new matrix of the entries where the boolean mask ``filt``
+        (one element an entry) is True."""
+        filt = _as_tensor(filt, torch.bool, self.device)
+        if filt.shape != (self.nnz,):
+            raise ValueError(f"filter has shape {tuple(filt.shape)}, expected"
+                             f" ({self.nnz},)")
+        rps, cis, vs, nnz = structure.filter_nnzs_arrays(self, filt)
+        return CSR(self.nrows, self.ncols, nnz, rps, cis, vs, _cast=False)
+
+    # -- transforms --------------------------------------------------------
+
+    def normalize_rows(self, normalization):
+        """Normalise each row's values **in place** (new values are
+        bound) and return the per-row statistic.
+
+        Args:
+            normalization(str): ``'center'`` (subtract the row mean, which
+                is returned) or ``'unit'`` (scale to unit Euclidean norm,
+                which is returned).
+        """
+        from . import transform
+
+        if normalization == "center":
+            fn = transform.center_rows
+        elif normalization == "unit":
+            fn = transform.unit_rows
+        else:
+            raise ValueError("unknown normalization: " + str(normalization))
+        if self.values is None:
+            raise ValueError("cannot normalize a structure-only matrix")
+        vs, stats = fn(self)
+        self._values = vs
+        self._host = None
+        return stats
+
+    def drop_values(self):
+        """Remove the value array **in place** (deprecated)."""
+        warnings.warn("drop_values is deprecated", DeprecationWarning)
+        self._values = None
+        self._host = None
+
+    def fill_values(self, value):
+        """Set every stored value to ``value`` **in place** (a new tensor
+        is bound), giving a structure-only matrix float32 values."""
+        vs = self.values
+        if vs is None:
+            vs = torch.empty(self.nnz, dtype=VALUE_DTYPE, device=self.device)
+        self._values = torch.full_like(vs, value)
+        self._host = None
 
     # -- multiplication ----------------------------------------------------
 
@@ -392,15 +565,6 @@ class CSR:
             with releasing(K.to_handle(s), K) as h:
                 outs.append(K.mult_dense(h, b))
         return torch.cat(outs)
-
-    def transpose(self, include_values=True):
-        _not_ported("CSR.transpose", "item 7")
-
-    def sort_rows(self):
-        _not_ported("CSR.sort_rows", "item 7")
-
-    def normalize_rows(self, normalization):
-        _not_ported("CSR.normalize_rows", "item 7")
 
     def _filter_zeros(self):
         """Drop explicitly stored zero values, in place."""

@@ -1,6 +1,6 @@
 // The device body of the micro-block SpMV, y += A @ x over one aligned
-// group of 32 micro-rows, shared by spmv_microblock.cu (one layout) and
-// spmv_bucket.cu (one bucket of a stack of layouts).
+// group of 32 micro-rows, included by spmv_microblock.cu (one layout).
+// spmv_bucket.cu carries a body of its own.
 //
 // It is the port of the Pallas TPU kernel body
 // csr_tpu/ops/spmv.py:_spmv_kernel, on the same layout, byte for byte

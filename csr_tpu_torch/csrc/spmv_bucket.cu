@@ -287,7 +287,8 @@ spmv_bucket_kernel(const float4* __restrict__ vals4,
 }
 
 // A block may take more than the 48 KB of shared memory a launch gets
-// unasked; say so once, before the first launch.
+// unasked.  The attribute holds for the current device only, so it is
+// set before every launch, whichever card the launch is on.
 cudaError_t allow_shared_memory() {
   return cudaFuncSetAttribute(spmv_bucket_kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -315,7 +316,7 @@ extern "C" int csrt_spmv_bucket(const void* vals, const void* meta,
   if (int64_t(n_layers) * n_buckets * bucket_microrows >= (int64_t(1) << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (grid > 0 && n_layers > 0) {
-    static const cudaError_t prepared = allow_shared_memory();
+    const cudaError_t prepared = allow_shared_memory();
     if (prepared != cudaSuccess) return static_cast<int>(prepared);
     spmv_bucket_kernel<<<unsigned(grid), kThreads, kSharedBytes,
                          static_cast<cudaStream_t>(stream)>>>(

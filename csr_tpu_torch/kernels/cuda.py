@@ -17,10 +17,13 @@ any launch:
 * f64 values or operands go to the ``torch`` backend, as the JAX package
   routes f64 away from its kernel.  A kernel templated on f64 is ROADMAP
   Queue 1 item 7;
-* SpMV of a matrix outside the packing range (more than 32767 row
-  windows or 65535 column windows) raises :class:`NotImplementedError`:
-  its chunk/panel form ``spmv_large`` is ROADMAP Queue 1 item 4.  SpMM of
-  such a matrix goes to the ``torch`` backend;
+* SpMV of a matrix (or, for ``mult_vec_t``, a transpose) of more than
+  :data:`_LARGE_WINDOWS` row windows, or outside the packing range,
+  runs ``ops/spmv.py:spmv_large``: chunks of :data:`_LARGE_WINDOWS` row
+  windows and panels of as many column windows, the SpMV kernel once a
+  panel.  The layouts are cached on the matrix as the others are.  SpMM
+  of a matrix outside the packing range goes to the ``torch`` backend,
+  as the JAX package runs no SpMM on panels;
 * SpMM of a matrix whose dense f32 form fits the dense budget of
   :mod:`csr_tpu_torch.ops.spgemm` and whose density is at least
   :func:`_min_density` of B's width is a densified f32 ``torch.matmul``
@@ -29,10 +32,11 @@ any launch:
   the rest runs the SpMM kernel;
 * SpGEMM densifies B (or B^T) within the budget of
   :mod:`csr_tpu_torch.ops.spgemm` and multiplies A by it as SpMM does;
-  past that budget it raises (ESC, ROADMAP Queue 1 item 6).
+  past that budget it runs that module's expand-sort-compress (ESC).
 
 Each SpMM or SpGEMM emits a ``mult_dense`` or ``spgemm`` trace event
-whose ``route`` is ``zeros``, ``torch``, ``dense`` or ``kernel``.
+whose ``route`` is ``zeros``, ``torch``, ``dense``, ``kernel`` or (SpGEMM
+only) ``esc``.
 """
 
 from __future__ import annotations
@@ -57,22 +61,42 @@ from csr_tpu_torch.ops import spmv as _spmv_op
 max_nnz = 1 << 30
 
 
-def _build(csr, transpose: bool):
+#: the large path's budget, in 128-wide windows: SpMV of a matrix of more
+#: row windows (or one outside the packing range) runs ``spmv_large`` on
+#: chunks of this many row windows and panels of this many column
+#: windows.  At the packer's row range, routing is that of every matrix
+#: the packer takes, and no chunk leaves it.
+_LARGE_WINDOWS = microblock.MAX_RB
+
+
+def _needs_large(nrows: int, ncols: int) -> bool:
+    """Whether SpMV of an ``nrows x ncols`` matrix runs ``spmv_large``."""
+    return (-(-nrows // microblock.LANE) > _LARGE_WINDOWS
+            or not _packable(nrows, ncols))
+
+
+def _host_form(csr, transpose: bool):
+    """``(nrows, ncols, rowptrs, colinds, values)`` of ``csr`` or of its
+    transpose, on the host (the transpose by the native host transpose)."""
     rp, cis, vals = csr.host_arrays()
     nrows, ncols = csr.nrows, csr.ncols
     if transpose:
         vals32 = None if vals is None else np.asarray(vals, np.float32)
         rp, cis, vals = native.transpose_host(nrows, ncols, rp, cis, vals32)
         nrows, ncols = ncols, nrows
+    return nrows, ncols, rp, cis, vals
+
+
+def _build(csr, transpose: bool):
+    nrows, ncols, rp, cis, vals = _host_form(csr, transpose)
     layout = microblock.build_microblocks_host(
         nrows, ncols, rp, cis, vals, device=csr.device
     )
     if layout is None:
-        raise NotImplementedError(
-            f"a {nrows}x{ncols} matrix exceeds the micro-block packing range"
-            f" ({microblock.MAX_RB} row windows, {microblock.MAX_CB} column"
-            " windows); its chunk/panel form spmv_large is ROADMAP Queue 1"
-            " item 4"
+        raise ValueError(
+            f"a {nrows}x{ncols} matrix is outside the micro-block packing"
+            f" range ({microblock.MAX_RB} row windows, {microblock.MAX_CB}"
+            " column windows): route it to spmv_large"
         )
     trace(
         "layout-build-t" if transpose else "layout-build",
@@ -82,10 +106,24 @@ def _build(csr, transpose: bool):
     return layout
 
 
-def _cached(csr, attr: str, transpose: bool) -> microblock.MicroBlockLayout:
-    """Layout of ``csr`` (or of its transpose), cached on the matrix and
-    keyed on the identity of its three tensors, so an op that replaces
-    them invalidates the cache."""
+def _build_large(csr, transpose: bool):
+    nrows, ncols, rp, cis, vals = _host_form(csr, transpose)
+    chunks = _spmv_op.build_large_layouts(
+        nrows, ncols, rp, cis, vals, max_windows=_LARGE_WINDOWS,
+        device=csr.device,
+    )
+    trace(
+        "layout-build-large", nnz=csr.nnz, chunks=len(chunks),
+        panels=sum(len(p) for _, p in chunks), transpose=transpose,
+        bytes=sum(lay.nbytes for _, p in chunks for _, lay in p),
+    )
+    return chunks
+
+
+def _cached(csr, attr: str, build, transpose: bool):
+    """``build(csr, transpose)``, cached on the matrix and keyed on the
+    identity of its three tensors, so an op that replaces them
+    invalidates the cache."""
     cached = getattr(csr, attr, None)
     if (
         cached is not None
@@ -94,17 +132,23 @@ def _cached(csr, attr: str, transpose: bool) -> microblock.MicroBlockLayout:
         and cached[2] is csr.values
     ):
         return cached[3]
-    layout = _build(csr, transpose)
-    setattr(csr, attr, (csr.rowptrs, csr.colinds, csr.values, layout))
-    return layout
+    built = build(csr, transpose)
+    setattr(csr, attr, (csr.rowptrs, csr.colinds, csr.values, built))
+    return built
 
 
 def _cached_layout(csr) -> microblock.MicroBlockLayout:
-    return _cached(csr, "_mb_layout_cache", transpose=False)
+    return _cached(csr, "_mb_layout_cache", _build, transpose=False)
 
 
 def _cached_layout_t(csr) -> microblock.MicroBlockLayout:
-    return _cached(csr, "_mb_layout_t_cache", transpose=True)
+    return _cached(csr, "_mb_layout_t_cache", _build, transpose=True)
+
+
+def _cached_large(csr, transpose: bool):
+    """Chunk/panel layouts of ``csr`` (or of its transpose), cached."""
+    attr = "_mb_large_t_cache" if transpose else "_mb_large_cache"
+    return _cached(csr, attr, _build_large, transpose)
 
 
 class CudaHandle:
@@ -166,8 +210,9 @@ def release_handle(h, drop_cache: bool = False):
     h._torch_handle = None
     h._dense = None
     if drop_cache:
-        h.csr._mb_layout_cache = None
-        h.csr._mb_layout_t_cache = None
+        for attr in ("_mb_layout_cache", "_mb_layout_t_cache",
+                     "_mb_large_cache", "_mb_large_t_cache"):
+            setattr(h.csr, attr, None)
 
 
 def order_columns(h):
@@ -185,12 +230,17 @@ def _mult(h, v, transpose: bool):
     if out_dtype == torch.float64:
         fn = _torch_k.mult_vec_t if transpose else _torch_k.mult_vec
         return fn(h.torch_handle, v)
+    nrows, ncols = (c.ncols, c.nrows) if transpose else (c.nrows, c.ncols)
+    if _needs_large(nrows, ncols):
+        chunks = _cached_large(c, transpose)
+        return _spmv_op.spmv_large(chunks, ncols, v).to(out_dtype)
     layout = h.layout_t if transpose else h.layout
     return _spmv_op.spmv(layout, v).to(out_dtype)
 
 
 def mult_vec(h, v):
-    """SpMV ``A @ v`` on the micro-block kernel."""
+    """SpMV ``A @ v`` on the micro-block kernel (chunks and panels past
+    :data:`_LARGE_WINDOWS`)."""
     return _mult(h, v, transpose=False)
 
 
@@ -232,10 +282,11 @@ def _dense_affordable(csr, n: int) -> bool:
     return csr.nnz / elems >= _min_density(n)
 
 
-def _packable(csr) -> bool:
-    """Whether the micro-block layout can address the matrix (at the
-    wider window, which :func:`microblock.choose_layout` falls back to)."""
-    return microblock.in_range(csr.nrows, csr.ncols, 2 * microblock.LANE)
+def _packable(nrows: int, ncols: int) -> bool:
+    """Whether the micro-block layout can address an ``nrows x ncols``
+    matrix (at the wider window, which :func:`microblock.choose_layout`
+    falls back to)."""
+    return microblock.in_range(nrows, ncols, 2 * microblock.LANE)
 
 
 def _matmul_f32(a, b):
@@ -257,7 +308,7 @@ def _sparse_times_dense(h, b, op: str):
     if _dense_affordable(c, b.shape[1]):
         trace(op, route="dense", shape=(c.nrows, c.ncols), n=b.shape[1])
         return _matmul_f32(h.dense, b)
-    if not _packable(c):
+    if not _packable(c.nrows, c.ncols):
         trace(op, route="torch", shape=(c.nrows, c.ncols), n=b.shape[1])
         return _torch_k.mult_dense(h.torch_handle, b)
     trace(op, route="kernel", shape=(c.nrows, c.ncols), n=b.shape[1])
@@ -281,8 +332,8 @@ def mult_dense(h, B):
 def _spgemm(a_h, b_h, transpose: bool):
     """SpGEMM on the dense route: densify B (or B^T) in f32, multiply A by
     it on :func:`_sparse_times_dense`'s route, compact the product to CSR.
-    f64 goes to the torch backend; a product past the dense budget raises
-    (ESC, ROADMAP Queue 1 item 6)."""
+    f64 goes to the torch backend; a product past the dense budget runs
+    ESC (:mod:`csr_tpu_torch.ops.spgemm`)."""
     a, b = a_h.csr, b_h.csr
     out_dtype = _torch_k._result_dtype(_torch_k._values_dtype(a),
                                        _torch_k._values_dtype(b))
@@ -292,6 +343,7 @@ def _spgemm(a_h, b_h, transpose: bool):
         return to_handle(_torch_k.from_handle(fn(a_h.torch_handle, b_h.torch_handle)))
     n_out = b.nrows if transpose else b.ncols
     if not _spgemm_op.dense_fits(a.nrows, b.nrows, b.ncols, n_out, out_dtype):
+        trace("spgemm", route="esc", shape=(a.nrows, a.ncols), n=n_out)
         mul = _spgemm_op.esc_mult_abt if transpose else _spgemm_op.esc_mult_ab
         return to_handle(mul(a, b, out_dtype))
     if a.nnz == 0 or b.nnz == 0:

@@ -5,8 +5,8 @@ The portable backend: it runs on any device, with no kernel of this
 repository.  SpMV is ``index_add_`` of ``values * v[colinds]`` over the
 per-entry row ids that the handle carries; SpMM is ``index_add_`` of
 ``values[:, None] * B[colinds]`` over the same ids; SpGEMM densifies B
-and runs that SpMM, within the dense budget of
-:mod:`csr_tpu_torch.ops.spgemm`.
+and runs that SpMM within the dense budget of
+:mod:`csr_tpu_torch.ops.spgemm`, and runs that module's ESC past it.
 """
 
 from __future__ import annotations
@@ -137,7 +137,7 @@ def mult_dense(h, B):
 def _spgemm(a_h, b_h, transpose: bool):
     """SpGEMM by densification: densify B (or B^T), accumulate A's rows
     of it, compact the product to CSR.  Past the dense budget the
-    product needs ESC (:mod:`csr_tpu_torch.ops.spgemm`)."""
+    product runs ESC (:mod:`csr_tpu_torch.ops.spgemm`)."""
     a, b = a_h.csr, b_h.csr
     out_dtype = _result_dtype(_values_dtype(a), _values_dtype(b))
     n_out = b.nrows if transpose else b.ncols

@@ -19,6 +19,10 @@ Micro-block SpMV (counterpart of :func:`csr_tpu.ops.spmv.spmv`).
   PyTorch version and :data:`bucket_launches` its launch count.
   :func:`bucket_grid` is the kernel's grid and :func:`bucket_work` the
   (layer, micro-row) pairs each of its blocks takes, in the kernel's order.
+* :func:`build_large_layouts` cuts a matrix into row chunks and column
+  panels that each pack into a layout, and :func:`spmv_large` runs
+  :func:`spmv` once a panel: the counterpart of the JAX package's
+  ``spmv_large``, for matrices past a budget of windows.
 """
 
 from __future__ import annotations
@@ -27,8 +31,11 @@ import functools
 
 import torch
 
+import numpy as np
+
 from .microblock import (ACC_GROUP, LANE, BucketStack, MicroBlockLayout,
-                         check_on_card, check_stack_on_card)
+                         build_microblocks_host, check_on_card,
+                         check_stack_on_card)
 
 #: number of launches of the CUDA kernel (plain-version calls not counted)
 launches = 0
@@ -217,4 +224,69 @@ def spmv_bucket(stack: BucketStack, held: torch.Tensor, x: torch.Tensor,
                           stack.groups, x, y, bucket_grid(stack, _sm_count(dev)),
                           stack.epos_shift, stack.nrows)
     bucket_launches += 1
+    return y
+
+
+def build_large_layouts(nrows: int, ncols: int, rp, cols, vals, *,
+                        max_windows: int, device="cpu"):
+    """Chunk/panel layouts of host CSR arrays, on ``device``: rows in
+    chunks of ``max_windows * 128`` and each chunk's columns in panels of
+    ``max_windows * 128``, every (chunk, panel) block packed on its own
+    (panels are unions of whole windows, so its groups are those of the
+    unsplit layout).  The layouts are the JAX package's
+    ``build_large_layouts``'s, byte for byte.
+
+    Returns a list of row chunks ``(chunk_nrows, [(col_window_off,
+    layout), ...])``, empty panels dropped."""
+    rp = np.asarray(rp)
+    cols = np.asarray(cols)
+    span = max_windows * LANE
+    chunks = []
+    for r0 in range(0, max(nrows, 1), span):
+        r1 = min(nrows, r0 + span)
+        s0, s1 = int(rp[r0]), int(rp[r1])
+        crp = (rp[r0 : r1 + 1] - rp[r0]).astype(np.int64)
+        ccols = cols[s0:s1]
+        cvals = None if vals is None else vals[s0:s1]
+        cn = r1 - r0
+        panels = []
+        n_panels = -(-max(ncols, 1) // span)
+        if n_panels <= 1:
+            if s1 > s0:
+                panels.append((0, build_microblocks_host(
+                    cn, ncols, crp, ccols, cvals, device=device)))
+        else:
+            rows = np.repeat(np.arange(cn, dtype=np.int64), np.diff(crp))
+            pid = ccols.astype(np.int64) // span
+            for p in range(n_panels):
+                mask = pid == p
+                if not mask.any():
+                    continue
+                pc = (ccols[mask] - p * span).astype(np.int32)
+                prp = np.zeros(cn + 1, np.int64)
+                np.cumsum(np.bincount(rows[mask], minlength=cn), out=prp[1:])
+                pv = None if cvals is None else cvals[mask]
+                pncols = min(ncols - p * span, span)
+                panels.append((p * max_windows, build_microblocks_host(
+                    cn, pncols, prp, pc, pv, device=device)))
+        chunks.append((cn, panels))
+    return chunks
+
+
+def spmv_large(chunks, ncols: int, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` over :func:`build_large_layouts`'s chunks: :func:`spmv`
+    once a panel, on the panel's contiguous slice of ``x``, adding into
+    its chunk's contiguous slice of one zeroed f32 ``y`` (``out=``), so
+    nothing is concatenated.  ``x`` must lie on the layouts' device."""
+    if x.shape != (ncols,):
+        raise ValueError(f"x: expected shape ({ncols},), got {tuple(x.shape)}")
+    x = x.to(torch.float32).contiguous()
+    y = torch.zeros(sum(cn for cn, _ in chunks), dtype=torch.float32,
+                    device=x.device)
+    r0 = 0
+    for cn, panels in chunks:
+        for cb_off, layout in panels:
+            c0 = cb_off * LANE
+            spmv(layout, x[c0 : c0 + layout.ncols], out=y[r0 : r0 + cn])
+        r0 += cn
     return y

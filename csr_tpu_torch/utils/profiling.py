@@ -1,15 +1,21 @@
 """
-Timing on the card (counterpart of :func:`csr_tpu.utils.profiling.timed_chained`).
+Timing on the card (counterpart of :mod:`csr_tpu.utils.profiling`).
 
-:func:`timed_chained` times chained iterations with CUDA events.
-:func:`peak_gbps` gives a card's published memory bandwidth from its
-device name, :func:`peak_f32_tflops` its f32 rate outside the tensor
-cores, and :func:`least_ms` the least time the card could take for given
-bytes and operations.  A measurement needs a CUDA device: there is no
-CPU timing here, so no CPU number can pass for a device one.
+:func:`timed_chained` times chained iterations with CUDA events, and
+:func:`timed` single calls.  :func:`peak_gbps` gives a card's published
+memory bandwidth from its device name, :func:`peak_f32_tflops` its f32
+rate outside the tensor cores, and :func:`least_ms` the least time the
+card could take for given bytes and operations.  :class:`Roofline`
+turns an op's bytes, entries and measured seconds into rates and a share
+of the card's bandwidth, and :func:`profiler_trace` records a
+``torch.profiler`` trace.  A measurement needs a CUDA device: there is
+no CPU timing here, so no CPU number can pass for a device one.
 """
 
 from __future__ import annotations
+
+import statistics
+from dataclasses import dataclass, field
 
 import torch
 
@@ -83,3 +89,83 @@ def timed_chained(step, x0: torch.Tensor, iters: int = 300, reps: int = 3) -> fl
         end.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3 / iters)
     return best
+
+
+def _needs_card(what: str) -> None:
+    if not torch.cuda.is_available():
+        raise ValueError(f"{what} times CUDA work; there is no CUDA device")
+
+
+def timed(fn, *args, iters: int = 10) -> float:
+    """Median seconds of one call of ``fn(*args)`` between two CUDA events,
+    over ``iters`` calls after one warm-up call."""
+    _needs_card("timed")
+    fn(*args)
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 1e3)
+    return statistics.median(times)
+
+
+def _card_peak_gbps():
+    return peak_gbps() if torch.cuda.is_available() else None
+
+
+@dataclass
+class Roofline:
+    """Bytes and entries of one sparse op and its measured ``seconds``
+    (from :func:`timed` or :func:`timed_chained`), against the card's
+    published bandwidth (None where there is no card or it is not in the
+    table: then :attr:`fraction_of_roofline` is None too)."""
+
+    bytes_streamed: int = 0
+    bytes_resident: int = 0
+    nnz: int = 0
+    seconds: float = 0.0
+    peak_gbps: float | None = field(default_factory=_card_peak_gbps)
+
+    @property
+    def total_bytes(self) -> int:
+        return self.bytes_streamed + self.bytes_resident
+
+    @property
+    def achieved_gbps(self) -> float:
+        return self.total_bytes / self.seconds / 1e9 if self.seconds else 0.0
+
+    @property
+    def nnz_per_s(self) -> float:
+        return self.nnz / self.seconds if self.seconds else 0.0
+
+    @property
+    def fraction_of_roofline(self) -> float | None:
+        if not self.peak_gbps:
+            return None
+        return self.achieved_gbps / self.peak_gbps
+
+    def report(self) -> dict:
+        frac = self.fraction_of_roofline
+        return {
+            "gbps": self.achieved_gbps,
+            "gnnz_per_s": self.nnz_per_s / 1e9,
+            "roofline_frac": frac,
+            "seconds": self.seconds,
+        }
+
+
+def profiler_trace(log_dir: str):
+    """A ``torch.profiler.profile`` context over the host and the card
+    that writes its trace (TensorBoard's and Perfetto's format) into
+    ``log_dir`` when the block ends."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(log_dir))

@@ -84,3 +84,18 @@ def test_header_edit_rebuilds(tmp_path, monkeypatch):
     (tmp_path / "value.h").write_text("#define VALUE 8\n")
     second, _ = build.build_cached(str(src), "unit", cmd, timeout=120)
     assert second != first and ctypes.CDLL(second).value() == 8
+
+
+def test_bucket_kernel_opts_in_before_every_launch():
+    """``cudaFuncSetAttribute`` holds for the current device only, so the
+    bucket kernel's opt-in to more than 48 KB of shared memory is made
+    before every launch, never cached once a process (a launch on a
+    second card would go without it)."""
+    text = pathlib.Path(_cuda.CSRC, "spmv_bucket.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", text)
+    entry = code[code.index('extern "C" int csrt_spmv_bucket('):]
+    entry = entry[: entry.index("\n}\n")]
+    assert re.search(r"\ballow_shared_memory\(\)", entry), entry
+    assert not re.search(r"\bstatic\b[^;]*allow_shared_memory", code)
+    launch = entry.index("spmv_bucket_kernel<<<")
+    assert entry.rindex("allow_shared_memory()", 0, launch) < launch

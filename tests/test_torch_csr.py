@@ -188,14 +188,19 @@ def test_empty_and_out_of_range():
         y = z.mult_vec(np.ones(7, np.float32))
         yt = z.mult_vec_t(np.ones(5, np.float32))
     assert torch.equal(y, torch.zeros(5)) and torch.equal(yt, torch.zeros(7))
-    # 32768 row windows: past the packer's 15-bit rb
+    # 32768 row windows: past the packer's 15-bit rb, so spmv_large runs
+    # its two row chunks (the second of 128 rows)
     nrows = 32768 * 128
     rp = np.zeros(nrows + 1, np.int64)
     rp[1:] = 1
-    tall = CSR(nrows, 3, 1, rp, np.array([2], np.int32), None)
-    with kernels.use_kernel("cuda"), pytest.raises(NotImplementedError,
-                                                   match="spmv_large"):
-        tall.mult_vec(np.ones(3, np.float32))
+    rp[-1] = 2  # and one entry in the last row
+    tall = CSR(nrows, 3, 2, rp, np.array([2, 0], np.int32),
+               np.array([1.5, -2.0], np.float32))
+    x = np.array([3.0, 5.0, 7.0], np.float32)
+    with kernels.use_kernel("cuda"):
+        y = tall.mult_vec(x)
+    assert len(cuda_k._cached_large(tall, False)) == 2
+    np.testing.assert_array_equal(y.numpy(), tall.to_scipy() @ x)
 
 
 def test_container_matches_reference():
@@ -219,8 +224,13 @@ def test_container_matches_reference():
     e = CSR.empty(3, 4, row_nnzs=[1, 0, 2])
     assert e.nnz == 3 and e.values.dtype == torch.float32
     assert torch.equal(CSR.empty(3, 4, values=False)._required_values(), torch.ones(0))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        c.transpose()
+    # the data has repeated coordinates, whose order the JAX sort leaves
+    # unspecified: arrays equal but for the values, values by dense sums
+    t, rt = c.transpose(), r.transpose()
+    for name in ("rowptrs", "colinds"):
+        assert np.array_equal(getattr(t, name).numpy(), np.asarray(getattr(rt, name)))
+    np.testing.assert_allclose(t.to_scipy().toarray(), rt.to_scipy().toarray(),
+                               rtol=1e-6)
 
 
 def test_pickle_round_trip():
@@ -284,3 +294,47 @@ def test_npz_from_reference_loads(structure_only, tmp_path):
 
 def test_package_exports():
     assert csr_tpu_torch.CSR is CSR
+
+
+def test_check_handle_leaks():
+    from csr_tpu_torch.utils.debug import check_handle_leaks
+
+    c = _port(_matrix())
+    x = np.ones(390, np.float32)
+    with check_handle_leaks() as counter, kernels.use_kernel("torch"):
+        c.mult_vec(x)
+        c.multiply(c, transpose=True)
+    assert counter.created == counter.released == 4
+    K = kernels.get_kernel("torch")
+    with pytest.raises(AssertionError, match="handle leak"):
+        with check_handle_leaks():
+            K.to_handle(c)
+    with check_handle_leaks(strict=False) as counter:
+        K.to_handle(c)
+    assert counter.outstanding == 1
+    with pytest.raises(KeyError), check_handle_leaks():  # the block's error wins
+        K.to_handle(c)
+        raise KeyError("inner")
+    assert not kernels._listeners
+
+
+def test_profiling_without_a_card(tmp_path):
+    """The timers refuse to time without a card; the roofline of given
+    seconds reports no share where no card's peak is known; the trace
+    context writes a trace of the host's work."""
+    from csr_tpu_torch.utils import debug, profiling
+
+    r = profiling.Roofline(bytes_streamed=6e9, bytes_resident=0, nnz=10**9,
+                           seconds=2.0, peak_gbps=3350.0)
+    assert r.achieved_gbps == 3.0 and r.nnz_per_s == 5e8
+    assert r.fraction_of_roofline == pytest.approx(3.0 / 3350.0)
+    assert r.report()["gnnz_per_s"] == 0.5
+    if not torch.cuda.is_available():
+        assert profiling.Roofline(seconds=1.0).fraction_of_roofline is None
+        with pytest.raises(ValueError):
+            profiling.timed(lambda: None)
+        with pytest.raises(RuntimeError), debug.guard_transfers():
+            pass
+    with profiling.profiler_trace(str(tmp_path)):
+        _port(_matrix()).mult_vec(np.ones(390, np.float32))
+    assert list(tmp_path.iterdir())

@@ -383,3 +383,83 @@ def test_ring_and_dist_on_card(n_shards, cuda_device):
     np.testing.assert_allclose(
         dist.collect_rows(d, dist.spmv(d, x, mesh)).cpu().numpy(), expect,
         rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("budget", [5000, 2**24])
+def test_esc_on_card(budget, cuda_device, monkeypatch):
+    """ESC on the card, in several chunks and in one, both ways, against
+    scipy; the product stays on the card with its rows sorted."""
+    from csr_tpu_torch.ops import spgemm
+
+    monkeypatch.setattr(spgemm, "esc_chunk_entries", budget)
+    a = random_matrix(300, 400, 0.05, seed=70)
+    b = random_matrix(400, 250, 0.05, seed=71, big_group=False)
+    A = CSR.from_scipy(a, device=cuda_device)
+    for c, want in ((spgemm.esc_mult_ab(A, CSR.from_scipy(b, device=cuda_device)),
+                     a @ b),
+                    (spgemm.esc_mult_abt(A, CSR.from_scipy(b.T.tocsr(),
+                                                           device=cuda_device)),
+                     a @ b)):
+        assert c.device.type == cuda_device.type and (c.nrows, c.ncols) == want.shape
+        got = c.to_scipy()
+        assert got.has_sorted_indices
+        assert_product_close(got.toarray(), want.toarray())
+
+
+def test_spmv_large_on_card(cuda_device, monkeypatch):
+    """The chunk/panel SpMV on the card with the budget cut to 2 windows:
+    512 x 640 is 2 chunks x 3 panels, its transpose 3 chunks x 2."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 2)
+    a = random_matrix(512, 640, 0.03, seed=72)
+    c = CSR.from_scipy(a, device=cuda_device)
+    rng = np.random.default_rng(73)
+    x = rng.uniform(-1, 1, 640).astype(np.float32)
+    xt = rng.uniform(-1, 1, 512).astype(np.float32)
+    before = spmv.launches
+    with use_kernel("cuda"):
+        y, yt = c.mult_vec(x), c.mult_vec_t(xt)
+    assert spmv.launches - before == 6 + 6
+    assert_spmv_close(y.cpu().numpy(), a.astype(np.float64) @ x, Scipy(a), x)
+    at = a.T.tocsr()
+    assert_spmv_close(yt.cpu().numpy(), at.astype(np.float64) @ xt, Scipy(at), xt)
+
+
+def test_structure_ops_on_card(cuda_device):
+    """Transpose, row sort, pick, filter and both normalisations on the
+    card give what they give on the CPU."""
+    rng = np.random.default_rng(74)
+    rows, cols = rng.integers(0, 200, 2000), rng.integers(0, 150, 2000)
+    vals = rng.uniform(0.5, 5, 2000).astype(np.float32)
+    on = CSR.from_coo(rows, cols, vals, (200, 150), device=cuda_device)
+    off = CSR.from_coo(rows, cols, vals, (200, 150), device="cpu")
+    stats = []
+    for c in (on, off):
+        c.sort_rows()
+        stats.append((c.normalize_rows("center"), c.normalize_rows("unit")))
+    assert torch.equal(on.colinds.cpu(), off.colinds)
+    for s_on, s_off in zip(*stats):
+        np.testing.assert_allclose(s_on.cpu().numpy(), s_off.numpy(), rtol=1e-5,
+                                   atol=1e-6)
+    np.testing.assert_allclose(on.values.cpu().numpy(), off.values.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    t_on, t_off = on.transpose(), off.transpose()
+    assert torch.equal(t_on.rowptrs.cpu(), t_off.rowptrs)
+    assert torch.equal(t_on.colinds.cpu(), t_off.colinds)
+    p_on, p_off = on.pick_rows([5, 5, 0, 199]), off.pick_rows([5, 5, 0, 199])
+    assert torch.equal(p_on.colinds.cpu(), p_off.colinds)
+    f_on = on.filter_nnzs(on.values > 0)
+    f_off = off.filter_nnzs(off.values > 0)
+    assert f_on.nnz == f_off.nnz and torch.equal(f_on.rowptrs.cpu(), f_off.rowptrs)
+
+
+def test_guard_transfers_on_card(cuda_device):
+    from csr_tpu_torch.utils.debug import guard_transfers
+
+    x = torch.ones(4, device=cuda_device)
+    with guard_transfers():
+        y = x * 2
+        with pytest.raises(RuntimeError):
+            float(y.sum())
+    assert float(y.sum()) == 8.0

@@ -18,6 +18,7 @@ import torch
 import csr_tpu
 import csr_tpu.kernels as ref_kernels
 from csr_tpu.kernels import pallas as ref_pallas
+from csr_tpu.ops import spgemm as ref_spgemm
 import csr_tpu_torch.kernels as kernels
 from csr_tpu_torch import CSR
 from csr_tpu_torch.kernels import cuda as cuda_k
@@ -195,15 +196,25 @@ def test_product_filters_zeros(kernel):
 
 
 @pytest.mark.parametrize("kernel", ["torch", "cuda"])
-def test_past_dense_budget_raises(kernel, monkeypatch):
+def test_past_dense_budget_raises(kernel, monkeypatch, routes):
+    """Past the dense budget the product runs ESC (it raised before ESC
+    was ported; the name stays): against the JAX package's ESC, forced
+    there by its own budget, and against scipy."""
     a, _, m, mt = _operands()
     c = CSR.from_scipy(a)
+    ref = _ref(a)
     monkeypatch.setattr(spgemm, "max_dense_bytes", 4)
-    with kernels.use_kernel(kernel):
-        with pytest.raises(NotImplementedError, match="ESC"):
-            c.multiply(CSR.from_scipy(m))
-        with pytest.raises(NotImplementedError, match="ESC"):
-            c.multiply(CSR.from_scipy(mt), transpose=True)
+    monkeypatch.setattr(ref_spgemm, "max_dense_elems", 1)
+    for b, transpose in ((m, False), (mt, True)):
+        with kernels.use_kernel(kernel):
+            p = c.multiply(CSR.from_scipy(b), transpose=transpose)
+        with ref_kernels.use_kernel("pallas"):
+            rp = ref.multiply(_ref(b), transpose=transpose)
+        want = (a @ (b.T if transpose else b)).toarray()
+        assert p.nnz == rp.nnz and np.all(p.values.numpy() != 0)
+        assert_product_close(_dense(p), want)
+        assert_product_close(_dense(p), _dense(rp))
+    assert routes == ([("spgemm", "esc")] * 2 if kernel == "cuda" else [])
 
 
 def test_dense_budget_counts_bytes():

@@ -83,3 +83,13 @@ def assert_same_partition(port, ref, tensors):
             assert got.tobytes() == want.tobytes(), name
         else:
             np.testing.assert_array_equal(np.asarray(got), want, err_msg=name)
+
+
+def port_of(ref):
+    """The port's copy, on the CPU, of a ``csr_tpu.CSR`` (its arrays go
+    across as numpy)."""
+    from csr_tpu_torch import CSR
+
+    vs = None if ref.values is None else np.asarray(ref.values)
+    return CSR(ref.nrows, ref.ncols, ref.nnz, np.asarray(ref.rowptrs),
+               np.asarray(ref.colinds), vs, device="cpu")
