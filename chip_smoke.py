@@ -5,7 +5,7 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
 It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
 ``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
-runs eighteen phases; any failure raises and the script exits nonzero.  It
+runs nineteen phases; any failure raises and the script exits nonzero.  It
 needs a CUDA device and never falls back to the CPU: every matrix is
 built with no device named and must land on the card.
 
@@ -95,10 +95,26 @@ built with no device named and must land on the card.
     launches) against the unsplit ``mult_vec`` and scipy; and the
     layout's fill and bytes an entry on 131,072-row samples, hypersparse
     (12 entries a row over 1M and 4M columns) and not.
+19. The harness and the transforms: ``python -m csr_tpu_torch.harness.
+    bench``'s path (the flagship chain of 300 products captured in a CUDA
+    graph and eager; 0 < vs_baseline <= 1.05; the captured chain's output
+    equal to the eager one's within the SpMV bound), ``benchmarks
+    --fast`` on scipy, torch and cuda (every product checked against
+    scipy), ``bench_weak`` at D = 1, 2, 4, halo and ring (the first step
+    of each against scipy); ``torch.func.vmap`` of ``mult_vec`` on the
+    cuda backend at the flagship with k = 8 and at the MovieLens-25M shape
+    with k = 50: one SpMM launch and no SpMV launch, against a loop of k
+    ``mult_vec`` calls, both timed by ``device_ms``; grad on the torch
+    backend on the card against ``mult_vec_t(w)`` and ``w[rows] *
+    x[cols]``; the host's cost of the SpMV op's dispatch, the flagship's
+    eager chain through the op against the wrapper called directly.  Each
+    path's launches are counted from 0 and printed, with the launches of
+    its CUDA-graph replays (which no counter sees) beside them.
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
-window, plus 1e-6), computed here on sparse matrices; SpMM ones that of
+window, plus 1e-6), computed on sparse matrices by
+``csr_tpu_torch.harness.spmv_share``; SpMM ones that of
 ``tests/test_mult_dense.py`` (rtol 5e-4, atol 1e-4 times the largest
 |result|), and the products ``tests/util.py:tols`` (rtol 5e-4, atol
 5e-3).  "share" is the largest error as a fraction of the bound, and
@@ -119,8 +135,9 @@ import numpy as np
 import scipy.sparse as sps
 import torch
 
-EPS_MULT = 384
-RTOL = 1e-4
+from csr_tpu_torch.harness import spmv_share
+from csr_tpu_torch.utils.profiling import launch_counts
+
 KERNEL = {
     "name": "spmv_microblock",
     "route": "cuda",
@@ -143,27 +160,6 @@ SPMM_KERNEL = {
 SPMM_RTOL, SPMM_ATOL = 5e-4, 1e-4
 # tests/util.py:tols for f32 products
 PROD_RTOL, PROD_ATOL = 5e-4, 5e-3
-
-
-def spmv_share(y, ref, a, x) -> float:
-    """Largest |y - ref| as a share of the assert_spmv_close bound for
-    ``ref = a @ x``; raises if it exceeds the bound or y is not finite."""
-    y = y.detach().cpu().numpy().astype(np.float64)
-    ref = np.asarray(ref, np.float64)
-    assert y.shape == ref.shape, (y.shape, ref.shape)
-    assert np.all(np.isfinite(y)), "non-finite SpMV output"
-    a = sps.csr_matrix(a, dtype=np.float64, copy=True)
-    a.sum_duplicates()
-    row_l1 = abs(a) @ np.abs(np.asarray(x, np.float64))
-    cum = np.concatenate([[0.0], np.cumsum(row_l1)])
-    n = len(row_l1)
-    idx = np.arange(n)
-    win_l1 = cum[np.minimum(idx + 128, n)] - cum[np.maximum(idx - 127, 0)]
-    eps = float(np.finfo(np.float32).eps)
-    tol = RTOL * np.abs(ref) + EPS_MULT * eps * win_l1 + 1e-6
-    share = float(np.max(np.abs(y - ref) / tol)) if n else 0.0
-    assert share <= 1.0, f"SpMV outside the bound: share {share:.3g}"
-    return share
 
 
 def spmm_share(c, ref, rtol=SPMM_RTOL, atol=SPMM_ATOL) -> float:
@@ -1438,7 +1434,9 @@ def phase_item_item(ml, card, block=1024):
     from csr_tpu_torch.ops import spgemm
 
     nrows, ncols, rowptr, cols, vals = ml[:5]
-    a = sps.csr_matrix((vals, cols, rowptr), shape=(nrows, ncols))
+    # a copy: sum_duplicates compacts the arrays in place, and phase 4's
+    # matrix and CSR (its host copy) share them
+    a = sps.csr_matrix((vals, cols, rowptr), shape=(nrows, ncols), copy=True)
     a.sum_duplicates()
     R = CSR(nrows, ncols, a.nnz, a.indptr, a.indices, a.data)
     on_card(R)
@@ -1723,6 +1721,207 @@ def phase_large(fl_csr, fl_a, x_fl, card, nrows=4_300_000, ncols=4096,
             "large_max_abs_err": err}
 
 
+def phase_vmap(tag, csr, a, k, seed, card):
+    """``torch.func.vmap`` of ``mult_vec`` on the cuda backend over ``k``
+    operands: one SpMM launch and no SpMV launch, held to the SpMV bound
+    against a loop of ``k`` ``mult_vec`` calls and against scipy; both
+    timed by ``device_ms``.  Returns the counts, the times and the largest
+    difference from the loop."""
+    from csr_tpu_torch.kernels import use_kernel
+
+    X = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (k, csr.ncols)).astype(np.float32)).cuda()
+    with use_kernel("cuda"):
+        def batch():
+            return torch.func.vmap(lambda v: csr.mult_vec(v))(X)
+
+        def loop():
+            return torch.stack([csr.mult_vec(X[i]) for i in range(k)])
+
+        launch_counts(reset=True)
+        Y = batch()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts == {"spmv_microblock": 0, "spmm_microblock": 1,
+                          "spmv_bucket": 0}, counts
+        Y_loop = loop()
+        ms_batch, ms_loop = device_ms(batch), device_ms(loop)
+    assert Y.shape == (k, csr.nrows), Y.shape
+    xs = X.cpu().numpy()
+    share = spmv_share(Y, Y_loop.cpu().numpy(), a, xs)
+    share_s = spmv_share(Y, (a.astype(np.float64) @ xs.T.astype(np.float64)).T,
+                              a, xs)
+    err = float((Y - Y_loop).abs().max())
+    print(f"[19] vmap of mult_vec, {tag} ({csr.nrows}x{csr.ncols}), k = {k}: "
+          f"launches {counts}; share of bound vs the loop of {k} mult_vec "
+          f"{share:.3g}, vs scipy {share_s:.3g}, max abs err {err:.3g}; device "
+          f"time {ms_batch:.5f} ms a batch against {ms_loop:.5f} ms for the "
+          f"loop; card {card}")
+    return {"k": k, "launches": counts, "ms": ms_batch, "loop_ms": ms_loop,
+            "max_abs_err": err}
+
+
+def phase_grad(csr, a, card):
+    """Grad on the torch backend, on the card: the gradients of
+    ``w . (A x)`` in the operand and the values match ``mult_vec_t(w)`` on
+    the cuda kernel and ``w[rows] * x[cols]``; the cuda backend refuses
+    the same call."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import use_kernel
+
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.standard_normal(csr.ncols).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.standard_normal(csr.nrows).astype(np.float32)).cuda()
+    vals = csr.values.detach().clone().requires_grad_()
+    c = CSR(csr.nrows, csr.ncols, csr.nnz, csr.rowptrs, csr.colinds, vals,
+            _cast=False)
+    xg = x.clone().requires_grad_()
+    with use_kernel("torch"):
+        y = c.mult_vec(xg)
+        gx, gv = torch.autograd.grad((w * y).sum(), (xg, vals))
+    with use_kernel("cuda"):
+        try:
+            c.mult_vec(xg)
+        except ValueError as e:
+            assert "torch backend" in str(e), e
+        else:
+            raise AssertionError("the cuda backend took a product needing grad")
+        want_x = csr.mult_vec_t(w)
+    torch.cuda.synchronize()
+    assert y.grad_fn is not None
+    wn = w.cpu().numpy()
+    at = a.T.tocsr()
+    share = spmv_share(gx, want_x.cpu().numpy().astype(np.float64), at, wn)
+    share_s = spmv_share(gx, at.astype(np.float64) @ wn, at, wn)
+    rows = torch.repeat_interleave(
+        torch.arange(csr.nrows, device="cuda"), torch.diff(csr.rowptrs.long()))
+    want_v = w[rows] * x[csr.colinds.long()]
+    err_v = float((gv - want_v).abs().max())
+    assert torch.allclose(gv, want_v, rtol=1e-6, atol=0), err_v
+    print(f"[19] grad on the torch backend at {csr.nrows}x{csr.ncols}: d/dx "
+          f"share of bound vs mult_vec_t(w) on the kernel {share:.3g}, vs scipy "
+          f"{share_s:.3g}; d/dvalues max abs err {err_v:.3g} against "
+          f"w[rows] * x[cols]; the cuda backend raised ValueError; card {card}")
+
+
+def phase_dispatch(csr, card, iters=300, reps=3, rounds=2):
+    """The host's cost of the SpMV op's dispatch (``ops/spmv.py:product``
+    outside a transform calls the op's forward, inside one the op): the
+    flagship's eager chain of ``normalized(A @ v)`` through
+    ``_Product.forward`` and through ``_Product.apply``, by
+    ``timed_chained`` (best of ``reps`` chains of ``iters``), in the order
+    forward, apply, apply, forward, ``rounds`` times; and the host's
+    milliseconds to enqueue a call of each (``per_call``).  Returns the
+    lists of times."""
+    from csr_tpu_torch.harness import normalized
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.ops import spmv as spmv_op
+    from csr_tpu_torch.utils import profiling
+
+    layout = cuda_k._cached_layout(csr)
+    x0 = torch.from_numpy(np.random.default_rng(192).standard_normal(
+        csr.ncols).astype(np.float32)).cuda()
+    fns = {"forward": spmv_op._Product.forward, "apply": spmv_op._Product.apply}
+    out = {f"{k}_{m}": [] for k in fns for m in ("chained_ms", "host_ms")}
+    for name in ("forward", "apply", "apply", "forward") * rounds:
+        f = fns[name]
+
+        def step(v):
+            return normalized(f(layout, csr.ncols, v, "mult_vec"))
+
+        out[f"{name}_chained_ms"].append(
+            profiling.timed_chained(step, x0, iters, reps) * 1e3)
+        out[f"{name}_host_ms"].append(
+            per_call(lambda: f(layout, csr.ncols, x0, "mult_vec"), iters)[1])
+    torch.cuda.synchronize()
+    print(f"[19] the SpMV op's dispatch at the flagship, chained "
+          f"normalized(A @ v), ms a product (forward, apply, apply, forward "
+          f"x{rounds}): forward {out['forward_chained_ms']}, apply "
+          f"{out['apply_chained_ms']}; host ms to enqueue a call: forward "
+          f"{out['forward_host_ms']}, apply {out['apply_host_ms']}; card {card}")
+    return out
+
+
+def path_launches(counted, graphs) -> dict:
+    """A path's kernel launches: ``counted``, what the wrappers counted
+    (eager calls and each graph's capture), and the launches that graph
+    replays ran, which no wrapper sees: ``graphs`` lists each captured
+    graph's launches (a dict of counts) with its number of replays."""
+    replayed = {k: sum(g.get(k, 0) * n for g, n in graphs) for k in counted}
+    return {"counted": counted, "replayed": replayed,
+            "total": {k: counted[k] + replayed[k] for k in counted}}
+
+
+def phase_harness(fl_csr, fl_a, ml_csr, ml_a, card):
+    """[19] The paths of the harness and of the transforms on the card:
+    ``harness.bench`` (0 < vs_baseline <= 1.05, the captured chain equal to
+    the eager one within the SpMV bound), ``harness.benchmarks --fast`` on
+    scipy, torch and cuda (every product checked against scipy),
+    ``harness.bench_weak`` at D = 1, 2, 4, halo and ring (the first step of
+    each against scipy), ``torch.func.vmap`` of ``mult_vec`` at the
+    flagship (k = 8) and the MovieLens-25M shape (k = 50), and grad on the
+    torch backend.  Each path runs with the launch counts set to 0 just
+    before it and read just after; graph replays, which the counts do not
+    see, are added from what each graph captured (:func:`path_launches`).
+    Returns the counts and numbers."""
+    from csr_tpu_torch.harness import bench, bench_weak, benchmarks
+
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    launch_counts(reset=True)
+    r = bench.main([])
+    out["launches"]["bench"] = path_launches(
+        launch_counts(), [(r.launches, r.replays)])
+    line = r.result
+    assert list(line) == list(bench.KEYS), line
+    assert 0 < line["vs_baseline"] <= 1.05, line
+    assert set(r.shares) == {"eager_vs_scipy", "graph_vs_eager"}, r.shares
+    assert r.launches == {"spmv_microblock": 300, "spmm_microblock": 0,
+                          "spmv_bucket": 0}, r.launches
+    assert r.replays == 3, r.replays
+    out["bench"] = dict(line, ms=r.seconds * 1e3, eager_ms=r.eager_seconds * 1e3,
+                        prep_s=r.prep_seconds, **r.shares)
+    print(f"[19] bench: {r.seconds * 1e3:.5f} ms a product captured, "
+          f"{r.eager_seconds * 1e3:.5f} ms eager; shares {r.shares}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    del r
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    launch_counts(reset=True)
+    rows = benchmarks.main(["--fast"])
+    out["launches"]["benchmarks"] = path_launches(launch_counts(), [])
+    groups = {(row["group"], row["kernel"]) for row in rows}
+    want = {(g, k) for g in ("MultAB", "MultABt", "MultAx", "MultAB-Density",
+                             "MultABt-Density", "MultAB-Size", "MultAB-ESC")
+            for k in ("scipy", "torch", "cuda")}
+    assert want <= groups, want - groups
+    out["benchmarks"] = rows
+    print(f"[19] benchmarks --fast: {len(rows)} rows, every product within "
+          f"tests/util.py:tols of scipy's; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    out["bench_weak"] = []
+    for argv, name in (([], "bench_weak"), (["--ring"], "bench_weak --ring")):
+        t0 = time.perf_counter()
+        launch_counts(reset=True)
+        runs = bench_weak.main(argv)
+        out["launches"][name] = path_launches(
+            launch_counts(), [(run["captured"], run["replays"]) for run in runs])
+        assert [run["line"]["devices"] for run in runs] == [1, 2, 4], runs
+        out["bench_weak"] += [run["line"] for run in runs]
+        print(f"[19] {name}: {time.perf_counter() - t0:.1f} s")
+        del runs
+        torch.cuda.empty_cache()
+
+    out["vmap"] = [phase_vmap("flagship", fl_csr, fl_a, 8, 190, card),
+                   phase_vmap("MovieLens shape", ml_csr, ml_a, 50, 191, card)]
+    phase_grad(fl_csr, fl_a, card)
+    out["dispatch"] = phase_dispatch(fl_csr, card)
+    print(json.dumps({"path_launches": out["launches"]}))
+    return out
+
+
 def main():
     card = phase_environment()
     phase_kernel_vs_plain()
@@ -1833,6 +2032,9 @@ def main():
     # counted from 0 inside the phase, after the count above was read)
     item_item = phase_item_item(ml, card)
     large = phase_large(fl_csr, fl_a, fl[5], card)
+    # the harness, vmap and grad (each path's launches counted from 0
+    # inside the phase, after the counts above were read)
+    harness_paths = phase_harness(fl_csr, fl_a, ml_csr, ml_a, card)
 
     def yardsticks(name):
         """Device times, the bound and the chained times at the flagship,
@@ -1842,6 +2044,8 @@ def main():
                     library_ms_movielens=lib_ml[name]["library_ms"])
 
     print(json.dumps({"esc_item_item": item_item}))
+    print(json.dumps({"harness": {k: harness_paths[k] for k in
+                                  ("bench", "bench_weak", "vmap", "dispatch")}}))
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=launches, max_abs_err=max_err, **large,
              **yardsticks("SpMV")),

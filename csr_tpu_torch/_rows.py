@@ -30,7 +30,9 @@ def _densify(csr, row, values: bool):
     rps, cis, vs, nnz = structure.pick_rows_arrays(csr, rows, values)
     out = torch.zeros(len(rows), csr.ncols, dtype=dtype, device=csr.device)
     rid = structure._row_ids(rps, len(rows), nnz).to(torch.int64)
-    out[rid, cis.to(torch.int64)] = (
+    # out of place, so that torch.func.vmap batches it over the values
+    out = out.index_put(
+        (rid, cis.to(torch.int64)),
         torch.ones(nnz, dtype=dtype, device=csr.device) if vs is None else vs)
     return out[0] if single else out
 

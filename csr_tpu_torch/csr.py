@@ -19,6 +19,9 @@ The methods that work "in place" (``sort_rows``, ``normalize_rows``,
 and drop the host copies; they never write into the tensors they held.
 The ``cuda`` kernel caches its layouts on the identity of the three
 tensors, so a rebinding is what tells it that a cached layout is stale.
+
+A CSR is a ``torch.utils._pytree`` node, as the JAX class is a pytree:
+``torch.func.vmap`` and ``torch.func.grad`` take and return it.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch.utils._pytree as _pytree
 
 from . import _rows, structure
 from .dtypes import COLIND_DTYPE, INT32_MAX, VALUE_DTYPE, ptr_dtype
@@ -641,3 +645,35 @@ class CSR:
         rps, cis, vs = self.host_arrays()
         return (CSR, (self.nrows, self.ncols, self.nnz, rps, cis, vs, True,
                       str(self.device)))
+
+
+# -- pytree registration -------------------------------------------------
+# The counterpart of the JAX package's pytree registration: it makes a CSR
+# an argument and a result of the torch.func transforms (vmap, grad).
+# torch's pytree takes None for a leaf, so a structure-only matrix
+# flattens to its two array leaves and the leaf count says whether it has
+# values.
+
+
+def _csr_flatten(c: CSR):
+    leaves = [c.rowptrs, c.colinds]
+    if c._values is not None:
+        leaves.append(c._values)
+    return leaves, (c.nrows, c.ncols)
+
+
+def _csr_unflatten(leaves, context) -> CSR:
+    """A CSR of the leaves, with no host copy (the leaves may be other
+    tensors than the ones the host copy was made from) and no cache."""
+    leaves = list(leaves)
+    obj = object.__new__(CSR)
+    obj.nrows, obj.ncols = context
+    obj.rowptrs, obj.colinds = leaves[:2]
+    obj._values = leaves[2] if len(leaves) == 3 else None
+    obj._host = None
+    return obj
+
+
+_pytree.register_pytree_node(
+    CSR, _csr_flatten, _csr_unflatten,
+    serialized_type_name="csr_tpu_torch.csr.CSR")

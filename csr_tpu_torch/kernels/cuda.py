@@ -34,6 +34,14 @@ any launch:
   :mod:`csr_tpu_torch.ops.spgemm` and multiplies A by it as SpMM does;
   past that budget it runs that module's expand-sort-compress (ESC).
 
+SpMV in either direction goes through
+:func:`csr_tpu_torch.ops.spmv.product`, so ``torch.func.vmap`` over the
+operand runs one SpMM launch a layout on the batch.  No product has a
+backward: ``mult_vec``, ``mult_vec_t`` and ``mult_dense`` raise
+ValueError when grad mode is on and the operand or the values require
+grad, on the CPU and on the card alike (the ``torch`` backend
+differentiates).
+
 Each SpMM or SpGEMM emits a ``mult_dense`` or ``spgemm`` trace event
 whose ``route`` is ``zeros``, ``torch``, ``dense``, ``kernel`` or (SpGEMM
 only) ``esc``.
@@ -221,7 +229,26 @@ def order_columns(h):
     h._layout_t = None
 
 
+def _refuse_grad(h, operand, op: str) -> None:
+    """Raise ValueError when grad mode is on and the operand or the
+    matrix's values require grad.  The kernels have no backward (nor has
+    the JAX package's ``pallas`` backend, which refuses ``jax.grad``), and
+    a kernel writes its result through a raw pointer, so the result would
+    come back with no ``grad_fn``: the gradient would be dropped without
+    a word on the card, where the CPU's plain version would carry it."""
+    if not torch.is_grad_enabled():
+        return
+    vals = h.csr.values
+    if operand.requires_grad or (vals is not None and vals.requires_grad):
+        raise ValueError(
+            f"{op} on the cuda backend has no backward: differentiate on the"
+            " torch backend (kernels.use_kernel('torch')), or run under"
+            " torch.no_grad()")
+
+
 def _mult(h, v, transpose: bool):
+    op = "mult_vec_t" if transpose else "mult_vec"
+    _refuse_grad(h, v, op)
     c = h.csr
     out_dtype = _torch_k._result_dtype(_torch_k._values_dtype(c), v.dtype)
     if c.nnz == 0:
@@ -232,10 +259,10 @@ def _mult(h, v, transpose: bool):
         return fn(h.torch_handle, v)
     nrows, ncols = (c.ncols, c.nrows) if transpose else (c.nrows, c.ncols)
     if _needs_large(nrows, ncols):
-        chunks = _cached_large(c, transpose)
-        return _spmv_op.spmv_large(chunks, ncols, v).to(out_dtype)
-    layout = h.layout_t if transpose else h.layout
-    return _spmv_op.spmv(layout, v).to(out_dtype)
+        a = _cached_large(c, transpose)
+    else:
+        a = h.layout_t if transpose else h.layout
+    return _spmv_op.product(a, v, ncols, op).to(out_dtype)
 
 
 def mult_vec(h, v):
@@ -318,6 +345,7 @@ def _sparse_times_dense(h, b, op: str):
 def mult_dense(h, B):
     """SpMM ``A @ B`` with dense ``B`` (see the module docstring for the
     routes)."""
+    _refuse_grad(h, B, "mult_dense")
     c = h.csr
     out_dtype = _torch_k._result_dtype(_torch_k._values_dtype(c), B.dtype)
     if c.nnz == 0:

@@ -2,8 +2,10 @@
 Plain PyTorch kernel backend (counterpart of :mod:`csr_tpu.kernels.xla`).
 
 The portable backend: it runs on any device, with no kernel of this
-repository.  SpMV is ``index_add_`` of ``values * v[colinds]`` over the
-per-entry row ids that the handle carries; SpMM is ``index_add_`` of
+repository.  SpMV is ``index_add`` of ``values * v[colinds]`` over the
+per-entry row ids that the handle carries, out of place, so that
+``torch.func.vmap`` batches it over the operand and autograd
+differentiates it in the values and the operand; SpMM is ``index_add_`` of
 ``values[:, None] * B[colinds]`` over the same ids; SpGEMM densifies B
 and runs that SpMM within the dense budget of
 :mod:`csr_tpu_torch.ops.spgemm`, and runs that module's ESC past it.
@@ -75,7 +77,7 @@ def mult_vec(h, v):
     out_dtype = _result_dtype(_values_dtype(c), v.dtype)
     prod = c._required_values().to(out_dtype) * v.to(out_dtype)[c.colinds]
     out = torch.zeros(c.nrows, dtype=out_dtype, device=v.device)
-    return out.index_add_(0, h.row_ids, prod)
+    return out.index_add(0, h.row_ids, prod)
 
 
 def mult_vec_t(h, v):
@@ -84,7 +86,7 @@ def mult_vec_t(h, v):
     out_dtype = _result_dtype(_values_dtype(c), v.dtype)
     prod = c._required_values().to(out_dtype) * v.to(out_dtype)[h.row_ids]
     out = torch.zeros(c.ncols, dtype=out_dtype, device=v.device)
-    return out.index_add_(0, c.colinds, prod)
+    return out.index_add(0, c.colinds, prod)
 
 
 def _densify(vals, cols, rids, nrows: int, ncols: int, dtype):

@@ -43,8 +43,10 @@ from csr_tpu_torch.kernels import trace
 #: The ``cuda`` backend's densify route keeps to the same budget.
 max_dense_bytes = 2**29
 
-#: product terms expanded at once; a chunk holds about 48 B a term at its
-#: peak (keys, their sorted copy, the permutation, values, indices).  The
+#: product terms expanded at once; a chunk holds its keys, their sorted
+#: copy, the permutation, values and indices, about 65 B a term at its
+#: peak as measured (13.1 GiB at the 217,250,243 terms of the block
+#: below in one chunk).  The
 #: fastest of 2^24, 2^26 and 2^28 for the item-item block of chip_smoke
 #: phase 17 on an NVIDIA H100 80GB HBM3 at 700 W: 59.1-61.1 ms a product
 #: in one chunk, 13.1 GiB allocated on the card at the peak, against

@@ -290,3 +290,69 @@ def spmv_large(chunks, ncols: int, x: torch.Tensor) -> torch.Tensor:
             spmv(layout, x[c0 : c0 + layout.ncols], out=y[r0 : r0 + cn])
         r0 += cn
     return y
+
+
+class _Product(torch.autograd.Function):
+    """:func:`spmv` or :func:`spmv_large` with a vmap rule (see
+    :func:`product`).  It has no backward, as the JAX package's Pallas
+    SpMV has none: the ``cuda`` backend refuses a product that would need
+    one before it gets here."""
+
+    @staticmethod
+    def forward(a, ncols, x, op):
+        if isinstance(a, MicroBlockLayout):
+            return spmv(a, x)
+        return spmv_large(a, ncols, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise RuntimeError("the micro-block SpMV has no backward: "
+                           "differentiate on the torch backend")
+
+    @staticmethod
+    def vmap(info, in_dims, a, ncols, x, op):
+        from csr_tpu_torch.kernels import trace
+
+        from . import spmm as spmm_op
+
+        # B = X^T: column j of B is operand j, whichever axis the batch is on
+        b = x.movedim(in_dims[2], 1)
+        if isinstance(a, MicroBlockLayout):
+            trace(op, route="kernel", shape=(a.nrows, a.ncols), n=b.shape[1])
+            return spmm_op.spmm(a, b), 1
+        c = torch.zeros(sum(cn for cn, _ in a), b.shape[1],
+                        dtype=torch.float32, device=b.device)
+        trace(op, route="kernel", shape=tuple(c.shape[:1]) + (ncols,),
+              n=b.shape[1])
+        r0 = 0
+        for cn, panels in a:
+            for cb_off, layout in panels:
+                c0 = cb_off * LANE
+                c[r0 : r0 + cn] += spmm_op.spmm(layout, b[c0 : c0 + layout.ncols])
+            r0 += cn
+        return c, 1
+
+
+def product(a, x: torch.Tensor, ncols: int | None = None,
+            op: str = "mult_vec") -> torch.Tensor:
+    """``A @ x`` on the SpMV kernel: ``a`` is a layout (:func:`spmv`) or
+    :func:`build_large_layouts`'s chunks of a matrix of ``ncols`` columns
+    (:func:`spmv_large`).  Returns f32 on the layouts' device.
+
+    Inside a ``torch.func`` transform the call goes through an op with a
+    vmap rule: ``torch.func.vmap`` over ``x`` runs one SpMM launch a
+    layout on the batch (``B = X^T``), and no SpMV launch, and emits one
+    ``op`` trace event (route ``kernel``, ``shape`` the product's rows and
+    columns, ``n`` the batch), as ``mult_dense`` does.  Outside one it
+    runs the op's forward directly: the op's dispatch added 0.035 and
+    0.059 ms of host time a call (medians of two runs), and every chained
+    flagship product through the op was slower than every one direct, on
+    an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's
+    ``phase_dispatch``, PERF.md), so the main path does not pay it."""
+    if torch._C._functorch.maybe_current_level() is None:
+        return _Product.forward(a, ncols, x, op)
+    return _Product.apply(a, ncols, x, op)

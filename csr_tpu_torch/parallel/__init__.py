@@ -107,10 +107,14 @@ def is_initialized() -> bool:
 
 
 def shutdown_distributed():
-    """Leave the process group (test-cluster hygiene)."""
+    """Leave the process group (test-cluster hygiene).  Every rank waits
+    at a barrier first: rank 0 hosts the group's ``TCPStore``, and a rank
+    that left while another still used the store could abort the other in
+    its teardown."""
     global _initialized
     if _initialized:
         import torch.distributed as dist
 
+        dist.barrier()
         dist.destroy_process_group()
         _initialized = False

@@ -1,8 +1,10 @@
 """
 Timing on the card (counterpart of :mod:`csr_tpu.utils.profiling`).
 
-:func:`timed_chained` times chained iterations with CUDA events, and
-:func:`timed` single calls.  :func:`peak_gbps` gives a card's published
+:func:`timed_chained` times chained iterations with CUDA events,
+:func:`timed_graph` the same chain captured once in a CUDA graph and
+replayed, and :func:`timed` single calls.  :func:`launch_counts` reads
+the three kernel wrappers' launch counts.  :func:`peak_gbps` gives a card's published
 memory bandwidth from its device name, :func:`peak_f32_tflops` its f32
 rate outside the tensor cores, and :func:`least_ms` the least time the
 card could take for given bytes and operations.  :class:`Roofline`
@@ -89,6 +91,64 @@ def timed_chained(step, x0: torch.Tensor, iters: int = 300, reps: int = 3) -> fl
         end.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3 / iters)
     return best
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """The launch counts of the three kernel wrappers (``ops/spmv.py``'s
+    ``spmv`` and ``spmv_bucket``, ``ops/spmm.py``'s ``spmm``), set to 0
+    first with ``reset``."""
+    from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
+
+    if reset:
+        spmv_op.launches = spmm_op.launches = spmv_op.bucket_launches = 0
+    return {"spmv_microblock": spmv_op.launches,
+            "spmm_microblock": spmm_op.launches,
+            "spmv_bucket": spmv_op.bucket_launches}
+
+
+def timed_graph(step, x0: torch.Tensor, iters: int = 300, reps: int = 3):
+    """Seconds per iteration of ``x -> step(x)`` chained ``iters`` times
+    from ``x0``, captured once in a ``torch.cuda.CUDAGraph`` and replayed:
+    one dispatch for all iterations, the counterpart of the JAX package's
+    jitted ``fori_loop``.  Each replay is timed between two CUDA events;
+    the best of ``reps``.  Returns ``(seconds, y, captured)``: ``y`` the
+    chain's output, which every replay rewrites, and ``captured`` the
+    kernel launches the graph holds (:func:`launch_counts`' keys), which
+    each of the ``reps`` replays runs again.
+
+    One step runs on a side stream before the capture, so that layouts,
+    kernel builds and cached device queries exist by then.  The capture
+    runs the Python of every step once: launch counters and trace events
+    count the captured launches, and a replay adds to neither, so the
+    launches that replays ran are ``reps`` times ``captured``, which the
+    counters never see.  A step that reads the device from the host
+    breaks the capture, which raises."""
+    if x0.device.type != "cuda":
+        raise ValueError(f"timed_graph times CUDA work; x0 is on {x0.device}")
+    x_in = x0.clone()
+    side = torch.cuda.Stream(x0.device)
+    side.wait_stream(torch.cuda.current_stream(x0.device))
+    with torch.cuda.stream(side):
+        step(x_in)
+    torch.cuda.current_stream(x0.device).wait_stream(side)
+    torch.cuda.synchronize(x0.device)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
+    with torch.cuda.graph(graph):
+        y = x_in
+        for _ in range(iters):
+            y = step(y)
+    captured = {k: n - before[k] for k, n in launch_counts().items()}
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3 / iters)
+    return best, y, captured
 
 
 def _needs_card(what: str) -> None:

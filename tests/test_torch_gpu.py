@@ -463,3 +463,87 @@ def test_guard_transfers_on_card(cuda_device):
         with pytest.raises(RuntimeError):
             float(y.sum())
     assert float(y.sum()) == 8.0
+
+
+@pytest.mark.parametrize("k,in_dim", [(8, 0), (3, 1)])
+def test_vmap_is_one_spmm_launch_on_card(k, in_dim, cuda_device):
+    """``torch.func.vmap`` of ``mult_vec`` on the cuda backend: one SpMM
+    launch on B = X^T (k = 3 through the padded copy), no SpMV launch,
+    each row within the SpMV bound of a ``mult_vec`` of its operand."""
+    a = random_matrix(300, 700, 0.03, seed=70 + k)
+    c = CSR.from_scipy(a, device=cuda_device)
+    X = np.random.default_rng(k).uniform(-1, 1, (k, 700)).astype(np.float32)
+    arg = torch.from_numpy(X if in_dim == 0 else X.T.copy()).to(cuda_device)
+    from csr_tpu_torch import kernels
+
+    events = []
+    with use_kernel("cuda"):
+        c.mult_vec(arg[0] if in_dim == 0 else arg[:, 0])  # packs the layout
+        before = (spmv.launches, spmm.launches)
+        kernels._listeners.append(
+            lambda e, f: events.append((e, f)) if e.startswith("mult_vec") else None)
+        try:
+            Y = torch.func.vmap(lambda v: c.mult_vec(v), in_dims=in_dim)(arg)
+        finally:
+            kernels._listeners.pop()
+        torch.cuda.synchronize()
+        assert (spmv.launches, spmm.launches) == (before[0], before[1] + 1)
+        assert events == [("mult_vec", {"route": "kernel", "shape": (300, 700),
+                                        "n": k})]
+        loop = [c.mult_vec(torch.from_numpy(X[i]).to(cuda_device)) for i in range(k)]
+    assert Y.shape == (k, 300)
+    for i in range(k):
+        assert_spmv_close(Y[i].cpu().numpy(), loop[i].cpu().numpy(), Scipy(a), X[i])
+        assert_spmv_close(Y[i].cpu().numpy(), a.astype(np.float64) @ X[i],
+                          Scipy(a), X[i])
+
+
+def test_graph_capture_of_mult_vec_on_card(cuda_device):
+    """A chain of ``CSR.mult_vec`` on a fixed matrix captured in a CUDA
+    graph: the capture launches once a step, a replay adds to no count,
+    and the replayed chain equals the eager one within the SpMV bound."""
+    from csr_tpu_torch.harness import normalized
+    from csr_tpu_torch.utils import profiling
+
+    a = random_matrix(300, 300, 0.03, seed=72)
+    c = CSR.from_scipy(a, device=cuda_device)
+    x0 = torch.from_numpy(np.random.default_rng(72).uniform(-1, 1, 300)
+                          .astype(np.float32)).to(cuda_device)
+
+    def step(v):
+        return normalized(c.mult_vec(v))
+
+    with use_kernel("cuda"):
+        before = spmv.launches
+        _, y, captured = profiling.timed_graph(step, x0, iters=5, reps=3)
+        assert spmv.launches == before + 1 + 5  # the warm-up step, the capture
+        assert captured == {"spmv_microblock": 5, "spmm_microblock": 0,
+                            "spmv_bucket": 0}
+        v = x0
+        for _ in range(4):
+            v = step(v)
+        last = c.mult_vec(v)
+    scale = torch.clamp_min(last.abs().max(), 1e-30)
+    x_last = (v / scale).cpu().numpy()
+    assert_spmv_close(y.cpu().numpy(), (last / scale).cpu().numpy(), Scipy(a),
+                      x_last)
+
+
+def test_cuda_backend_refuses_grad_on_card(cuda_device):
+    """On the card the kernel writes through a raw pointer, so a result
+    would have no ``grad_fn``: the cuda backend raises instead, and the
+    torch backend differentiates."""
+    a = random_matrix(300, 700, 0.03, seed=73)
+    c = CSR.from_scipy(a, device=cuda_device)
+    x = torch.ones(700, device=cuda_device, requires_grad=True)
+    with use_kernel("cuda"):
+        with pytest.raises(ValueError, match="torch backend"):
+            c.mult_vec(x)
+        with pytest.raises(ValueError, match="torch backend"):
+            c.mult_dense(x[:, None].expand(700, 4))
+    with use_kernel("torch"):
+        y = c.mult_vec(x)
+    assert y.grad_fn is not None
+    (g,) = torch.autograd.grad(y.sum(), x)
+    np.testing.assert_allclose(g.cpu().numpy(), np.asarray(a.sum(0)).ravel(),
+                               rtol=1e-5, atol=1e-5)
