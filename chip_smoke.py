@@ -5,7 +5,7 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
 It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
 ``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
-runs nineteen phases; any failure raises and the script exits nonzero.  It
+runs twenty phases; any failure raises and the script exits nonzero.  It
 needs a CUDA device and never falls back to the CPU: every matrix is
 built with no device named and must land on the card.
 
@@ -110,6 +110,15 @@ built with no device named and must land on the card.
     eager chain through the op against the wrapper called directly.  Each
     path's launches are counted from 0 and printed, with the launches of
     its CUDA-graph replays (which no counter sees) beside them.
+20. The layout chooser on the card: the six (window, pair) layouts of the
+    flagship, the MovieLens-25M shape, their transposes and a hypersparse
+    matrix (65,536 rows, 12 entries a row over 1,048,576 columns):
+    micro-rows, fill, bytes, the SpMV kernel against scipy and its
+    device time (``device_ms``, best of two rounds in opposite orders),
+    and per 1024 micro-rows; at the flagship and the MovieLens shape the
+    SpMM kernel (B x 256, x 50) and a D = 4 ring step on each window's
+    pair-1 layout.  ``choose_layout``'s pick must take at most 1.10 times
+    the fastest variant's SpMV time at every matrix.
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
@@ -459,7 +468,7 @@ def phase_main_path(tag, nrows, ncols, rowptr, cols, vals, x, xt):
                                ("mult_vec_t", layout_t, t2 - t1, share_t)):
         print(f"[{tag}] {name}: {nrows}x{ncols} nnz {nnz}, layout window "
               f"{lay.window} pair {lay.pair}, fill {lay.fill:.4f}, "
-              f"{lay.nbytes} B; first call {secs:.2f} s (host packing "
+              f"{lay.nbytes} B; first call {secs:.3f} s (host packing "
               f"included); share of bound vs scipy {s:.3g}")
     print(f"[{tag}] launches grew by {grew}")
     return (layout, x, a, csr.mult_vec), (layout_t, xt, at, csr.mult_vec_t)
@@ -1922,6 +1931,148 @@ def phase_harness(fl_csr, fl_a, ml_csr, ml_a, card):
     return out
 
 
+VARIANTS = tuple((w, p) for w in (128, 256) for p in (1, 2, 4))
+#: how far the chosen variant's SpMV time may lie above the fastest's
+CHOICE_SLACK = 1.10
+
+
+def layout_matrices(fl, ml):
+    """Phase 20's matrices as (name, scipy CSR, x): the flagship, the
+    MovieLens-25M shape, the transposes ``mult_vec_t`` multiplies by, and
+    a hypersparse matrix of phase 18's kind (65,536 rows, 12 power-law
+    entries a row over 1,048,576 columns)."""
+    fl_a = sps.csr_matrix((fl[4], fl[3], fl[2]), shape=fl[:2])
+    ml_a = sps.csr_matrix((ml[4], ml[3], ml[2]), shape=ml[:2])
+    nrows, ncols = 65_536, 1 << 20
+    rp, ci, v = power_law_rows(nrows, ncols, 12, seed=12 + ncols)
+    hyper = sps.csr_matrix((v, ci, rp), shape=(nrows, ncols))
+    rng = np.random.default_rng(20)
+    return [
+        ("flagship", fl_a, fl[5]),
+        ("flagship transpose", fl_a.T.tocsr(),
+         rng.standard_normal(fl[0]).astype(np.float32)),
+        ("MovieLens shape", ml_a, ml[5]),
+        ("MovieLens shape transpose", ml_a.T.tocsr(), ml[6]),
+        ("hypersparse", hyper, rng.standard_normal(ncols).astype(np.float32)),
+    ]
+
+
+def phase_layouts(fl, ml, card):
+    """[20] The six (window, pair) layouts of each of
+    :func:`layout_matrices`: micro-rows, fill and bytes, the SpMV kernel
+    held to the SpMV bound against scipy, and its device time
+    (``device_ms``, the best of two rounds taken in opposite orders).  At
+    the flagship and the MovieLens shape, each window's pair-1 layout
+    also times the SpMM kernel (B x 256 and x 50, checked against scipy
+    on a column slice) and a ring step (D = 4, local form, the mean of
+    the D steps, the ring's product checked against scipy).  Asserts that
+    the variant ``choose_layout`` picks takes at most CHOICE_SLACK times
+    the fastest variant's SpMV time at every matrix.  Returns the table."""
+    from csr_tpu_torch.ops import microblock, spmv as spmv_op
+
+    out = []
+    for name, a, x in layout_matrices(fl, ml):
+        nrows, ncols = a.shape
+        t0 = time.perf_counter()
+        chosen = microblock.choose_layout(a.indptr, a.indices, ncols)
+        choose_s = time.perf_counter() - t0
+        xd = torch.from_numpy(x).cuda()
+        ref = a.astype(np.float64) @ x
+        layouts = {}
+        for w, p in VARIANTS:
+            t0 = time.perf_counter()
+            lay = microblock.build_microblocks_host(
+                nrows, ncols, a.indptr, a.indices, a.data, window=w, pair=p,
+                device="cuda")
+            build_s = time.perf_counter() - t0
+            share = spmv_share(spmv_op.spmv(lay, xd), ref, a, x)
+            layouts[w, p] = lay, build_s, share
+        ms = {v: float("inf") for v in VARIANTS}
+        for order in (VARIANTS, VARIANTS[::-1]):
+            for v in order:
+                lay = layouts[v][0]
+                ms[v] = min(ms[v], device_ms(lambda: spmv_op.spmv(lay, xd), 20))
+        rows = []
+        for v in VARIANTS:
+            lay, build_s, share = layouts[v]
+            row = dict(matrix=name, window=v[0], pair=v[1],
+                       microrows=lay.n_microrows, fill=lay.fill,
+                       nbytes=lay.nbytes, ms=ms[v],
+                       us_per_1024=ms[v] * 1e3 / max(lay.n_microrows, 1) * 1024,
+                       build_s=build_s, share=share)
+            rows.append(row)
+            print(f"[20] {name} ({nrows}x{ncols}, nnz {a.nnz}) window {v[0]} "
+                  f"pair {v[1]}{' (chosen)' if v == chosen else ''}: "
+                  f"{lay.n_microrows} micro-rows, fill {lay.fill:.4f}, "
+                  f"{lay.nbytes} B; SpMV {ms[v]:.5f} ms of device time, "
+                  f"{row['us_per_1024']:.4f} us per 1024 micro-rows; share of "
+                  f"bound vs scipy {share:.3g}; packed in {build_s:.2f} s")
+        del layouts
+        torch.cuda.empty_cache()
+        best = min(ms, key=ms.get)
+        print(f"[20] {name}: choose_layout picks {chosen} in {choose_s:.3f} s, "
+              f"{ms[chosen]:.5f} ms; fastest {best}, {ms[best]:.5f} ms "
+              f"({ms[chosen] / ms[best]:.4f} of it); card {card}")
+        out.append(dict(matrix=name, chosen=list(chosen), fastest=list(best),
+                        choose_s=choose_s, variants=rows))
+        if name in ("flagship", "MovieLens shape"):
+            out[-1]["pair1"] = layout_spmm_ring(name, a, x, card)
+    print(json.dumps({"layouts": out}))
+    for m in out:
+        ms = {(r["window"], r["pair"]): r["ms"] for r in m["variants"]}
+        assert ms[tuple(m["chosen"])] <= CHOICE_SLACK * min(ms.values()), (
+            m["matrix"], m["chosen"], ms)
+    return out
+
+
+def layout_spmm_ring(name, a, x, card, n_shards=4):
+    """The SpMM kernel and a ring step on each window's pair-1 layout of
+    ``a`` (phase 20)."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.ops import microblock, spmm as spmm_op, spmv as spmv_op
+    from csr_tpu_torch.parallel import mb_ring
+    from csr_tpu_torch.parallel.partition import make_mesh
+
+    nrows, ncols = a.shape
+    n = 256 if name == "flagship" else 50
+    b = np.random.default_rng(n).standard_normal((ncols, n)).astype(np.float32)
+    bd = torch.from_numpy(b).cuda()
+    csr = CSR(nrows, ncols, a.nnz, a.indptr, a.indices, a.data)
+    mesh = make_mesh(n_shards)
+    held = mesh.held
+    out = {}
+    for w in (128, 256):
+        lay = microblock.build_microblocks_host(
+            nrows, ncols, a.indptr, a.indices, a.data, window=w, pair=1,
+            device="cuda")
+        spmm_share(spmm_op.spmm(lay, bd)[:, :4], a.astype(np.float64) @ b[:, :4])
+        spmm_ms = device_ms(lambda: spmm_op.spmm(lay, bd), 5)
+        del lay
+        rmb = mb_ring.partition_ring_mb(csr, n_shards, window=w).shard(mesh)
+        assert (rmb.window, rmb.pair) == (w, 1), (rmb.window, rmb.pair)
+        xs = mb_ring.scatter_x(rmb, x, mesh)
+        y = mb_ring.collect_rows(rmb, mb_ring.spmv_ring_mb(rmb, xs, mesh))
+        spmv_share(y, a.astype(np.float64) @ x, a, x)
+        stack = rmb.stack
+        acc = torch.zeros(n_shards, rmb.rows_per_shard, device="cuda")
+
+        def steps():
+            for k in range(n_shards):
+                spmv_op.spmv_bucket(stack, held[k], xs, acc)
+
+        ring_ms = device_ms(steps, 10) / n_shards
+        out[w] = dict(spmm_ms=spmm_ms, ring_step_ms=ring_ms,
+                      stack_bytes=rmb.nbytes)
+        print(f"[20] {name} window {w} pair 1: SpMM (B x {n}) {spmm_ms:.5f} ms "
+              f"of device time, within the SpMM bound of scipy on 4 columns; "
+              f"a ring step (D = {n_shards}, mean of the {n_shards}) "
+              f"{ring_ms:.5f} ms, stack {rmb.nbytes} B, the ring's product "
+              f"within the SpMV bound of scipy; card {card}")
+        del rmb, xs, y, stack, acc
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     card = phase_environment()
     phase_kernel_vs_plain()
@@ -2035,6 +2186,8 @@ def main():
     # the harness, vmap and grad (each path's launches counted from 0
     # inside the phase, after the counts above were read)
     harness_paths = phase_harness(fl_csr, fl_a, ml_csr, ml_a, card)
+    # the six (window, pair) layouts, and the chooser held to the fastest
+    layouts = phase_layouts(fl, ml, card)
 
     def yardsticks(name):
         """Device times, the bound and the chained times at the flagship,
@@ -2046,6 +2199,9 @@ def main():
     print(json.dumps({"esc_item_item": item_item}))
     print(json.dumps({"harness": {k: harness_paths[k] for k in
                                   ("bench", "bench_weak", "vmap", "dispatch")}}))
+    print(json.dumps({"chosen_layouts": {
+        m["matrix"]: dict(chosen=m["chosen"], fastest=m["fastest"])
+        for m in layouts}}))
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=launches, max_abs_err=max_err, **large,
              **yardsticks("SpMV")),

@@ -312,7 +312,7 @@ def _dense_affordable(csr, n: int) -> bool:
 def _packable(nrows: int, ncols: int) -> bool:
     """Whether the micro-block layout can address an ``nrows x ncols``
     matrix (at the wider window, which :func:`microblock.choose_layout`
-    falls back to)."""
+    picks wherever it can)."""
     return microblock.in_range(nrows, ncols, 2 * microblock.LANE)
 
 

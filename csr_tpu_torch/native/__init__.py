@@ -53,8 +53,6 @@ def _bind(lib):
     lib.csrt_transpose_structure.argtypes = [_i64, _i64, _i64p, _i32p, _i64p, _i32p]
     lib.csrt_mb_plan.restype = _i64
     lib.csrt_mb_plan.argtypes = [_i64, _i64, _i64, _i64p, _i32p, _i64, _i64, _i64]
-    lib.csrt_mb_plan3.restype = _i64
-    lib.csrt_mb_plan3.argtypes = [_i64, _i64, _i64, _i64p, _i32p, _i64, _i64, _i64p]
     lib.csrt_mb_fill.restype = _i64
     lib.csrt_mb_fill.argtypes = [_i64, _i64, _i64, _i64p, _i32p, _f32p, _i64,
                                  _i64, _i64, _i64, _f32p, _u16p, _i32p]
@@ -181,22 +179,6 @@ def plan_microrows(nrows, ncols, rowptrs, cols, window: int,
         int(window).bit_length() - 1, pad_mult, pair,
     )
     return None if m < 0 else int(m)
-
-
-def plan_microrows3(nrows, ncols, rowptrs, cols, window: int, pad_mult: int):
-    """Native micro-row counts for pair = (1, 2, 4) at one window width,
-    or None when unavailable or out of range."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    rowptrs = np.ascontiguousarray(rowptrs, np.int64)
-    cols = np.ascontiguousarray(cols, np.int32)
-    out3 = np.empty(3, np.int64)
-    rc = lib.csrt_mb_plan3(
-        len(cols), nrows, ncols, _p(rowptrs, _i64p), _p(cols, _i32p),
-        int(window).bit_length() - 1, pad_mult, _p(out3, _i64p),
-    )
-    return None if rc < 0 else tuple(int(v) for v in out3)
 
 
 def build_microblocks(nrows, ncols, rowptrs, cols, values, m_round: int,

@@ -19,7 +19,9 @@ Every stripe (the micro-rows of one ``rb``) is padded to a multiple of
 ``ACC_GROUP`` micro-rows, so each aligned group of ``ACC_GROUP``
 micro-rows shares one ``rb``; with ``pair = P`` every (rb, cb) group is
 padded to a multiple of P micro-rows; ``M`` is rounded up to
-``MR_BLOCK``.  See the JAX module for why the TPU wanted this shape.
+``MR_BLOCK``.  The shape is that of the JAX package's kernels; the CUDA
+kernels read it as it is, every (window, pair) alike
+(:func:`choose_layout`).
 
 The packing runs on the host (the native C++ packer, or numpy), and only
 the final arrays go to the device.
@@ -259,41 +261,28 @@ def estimate_microrows(rp, cols, window: int, ncols: int | None = None,
     return _estimate_multi_numpy(rp, cols, window, nrows)[(1, 2, 4).index(pair)]
 
 
-#: SpMV cost per 1024 micro-rows for each (window, pair).  These are the
-#: JAX package's numbers, MEASURED ON A TPU v5e for its Pallas kernel, and
-#: say nothing about the CUDA kernel.  They are kept unchanged so that the
-#: two packages choose the same layout and compare byte for byte;
-#: re-deriving them on the H100 is later work (ROADMAP).
-STEP_COST = {
-    (128, 1): 2.45, (128, 2): 1.98, (128, 4): 1.58,
-    (256, 1): 4.42, (256, 2): 2.86, (256, 4): 2.43,
-}
-
-
 def choose_layout(rp, cols, ncols: int | None = None) -> tuple[int, int]:
-    """``(window, pair)`` minimizing micro-row count times
-    :data:`STEP_COST`.  A window width whose ``cb`` count is outside the
-    packing range is skipped."""
+    """``(window, pair)`` of the default layout: ``(256, 1)`` wherever
+    the matrix packs at 256-wide windows, else (an empty matrix, or one
+    past the packing range) ``(128, 1)``.
+
+    (256, 1) has the fewest micro-rows of the six variants: merging two
+    128-wide windows never adds a micro-row, and a pair above 1 only pads.
+    The CUDA kernels run every variant alike (the window is a shift, a
+    pair only padding), so their time follows the micro-rows; chip_smoke
+    phase 20 measures the six variants and holds this choice to the
+    fastest."""
     if len(cols) == 0:
         return LANE, 1
-    rp = np.asarray(rp)
     nrows = len(rp) - 1
     if ncols is None:
         ncols = int(np.max(cols)) + 1
-    from csr_tpu_torch import native
+    return (2 * LANE, 1) if in_range(nrows, ncols, 2 * LANE) else (LANE, 1)
 
-    best = None
-    for window in (128, 256):
-        if not in_range(nrows, ncols, window):
-            continue
-        m3 = native.plan_microrows3(nrows, ncols, rp, cols, window, ACC_GROUP)
-        if m3 is None:
-            m3 = _estimate_multi_numpy(rp, cols, window, nrows)
-        for pair, m in zip((1, 2, 4), m3):
-            t = m * STEP_COST[(window, pair)]
-            if best is None or t < best[0]:
-                best = (t, window, pair)
-    return (LANE, 1) if best is None else best[1:]
+
+def choose_window(rp, cols, ncols: int | None = None) -> int:
+    """Window width of :func:`choose_layout`'s choice."""
+    return choose_layout(rp, cols, ncols)[0]
 
 
 def build_microblocks(csr, window: int | None = None,
@@ -314,16 +303,14 @@ def build_microblocks_host(
     """Pack host CSR arrays into a micro-block layout on ``device``.
 
     The native C++ packer runs when it is available, the numpy path
-    otherwise; both give the same bytes.  ``window`` (128 or 256) and
-    ``pair`` (1, 2 or 4) default to :func:`choose_layout`'s choice.
+    otherwise; both give the same bytes.  ``window`` (128 or 256)
+    defaults to :func:`choose_window`'s choice, ``pair`` (1, 2 or 4) to
+    1.
     Returns None when the matrix is outside the packing range (more than
     ``MAX_RB`` row windows or ``MAX_CB`` column windows)."""
     nnz = int(len(cols))
-    if nnz and (window is None or pair is None):
-        w_, p_ = choose_layout(rp, cols, ncols)
-        window = w_ if window is None else window
-        pair = p_ if pair is None else pair
-    window = LANE if window is None else window
+    if window is None:
+        window = choose_window(rp, cols, ncols)
     pair = 1 if pair is None else pair
     if window not in (128, 256) or pair not in (1, 2, 4):
         raise ValueError(f"(window, pair) = ({window}, {pair}): expected a"

@@ -118,13 +118,8 @@ def partition_microblocks(
     rows_per = max(int(np.max(np.diff(splits))), 1)
     # round the padded shard height to whole row windows
     rows_per = -(-rows_per // mb.LANE) * mb.LANE
-    if csr.nnz:
-        w_, p_ = mb.choose_layout(rp, cis, csr.ncols)
-    else:
-        w_, p_ = mb.LANE, 1
     if window is None:
-        window = w_
-    pair = p_ if window == w_ else 1
+        window = mb.choose_window(rp, cis, csr.ncols)
 
     layouts = []
     for d in range(n_shards):
@@ -137,13 +132,13 @@ def partition_microblocks(
             mb.build_microblocks_host(
                 rows_per, csr.ncols, lrp, cis[s0:s1],
                 None if vls is None else np.asarray(vls)[s0:s1],
-                window=window, pair=pair, device="cpu",
+                window=window, pair=1, device="cpu",
             )
         )
 
     stacked, microrows = _stack(layouts, n_shards)
     return DistMicroBlock(
-        csr.nrows, csr.ncols, csr.nnz, n_shards, rows_per, window, pair,
+        csr.nrows, csr.ncols, csr.nnz, n_shards, rows_per, window, 1,
         *stacked,
         splits[:-1].astype(np.int64), np.diff(splits).astype(np.int64),
         microrows,
@@ -220,27 +215,21 @@ def partition_microblocks_t(
         shard_t.append(native.transpose_host(
             r1 - r0, csr.ncols, lrp, cis[s0:s1], vls[s0:s1]))
 
-    # uniform (window, pair): 256 only when every shard's cost model
-    # picks it; pair = the most conservative per-shard choice, counting a
-    # shard's preference only when it was derived at the final window
-    choices = [
-        mb.choose_layout(t[0], t[1], rows_per) for t in shard_t
-    ] if csr.nnz else [(mb.LANE, 1)]
+    # one window for every shard: 256 only where every shard's is
     if window is None:
-        window = 256 if all(c[0] == 256 for c in choices) else mb.LANE
-    pair = min(c[1] if c[0] == window else 1 for c in choices)
+        window = min(mb.choose_window(t[0], t[1], rows_per) for t in shard_t)
 
     layouts = [
         mb.build_microblocks_host(
             csr.ncols, rows_per, t_rps, t_cis, t_vls, window=window,
-            pair=pair, device="cpu",
+            pair=1, device="cpu",
         )
         for t_rps, t_cis, t_vls in shard_t
     ]
 
     stacked, microrows = _stack(layouts, n_shards)
     return DistMicroBlockT(
-        csr.nrows, csr.ncols, csr.nnz, n_shards, rows_per, window, pair,
+        csr.nrows, csr.ncols, csr.nnz, n_shards, rows_per, window, 1,
         *stacked,
         splits[:-1].astype(np.int64), np.diff(splits).astype(np.int64),
         microrows,

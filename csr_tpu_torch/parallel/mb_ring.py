@@ -114,13 +114,8 @@ def partition_ring_mb(
     rp, cis = np.asarray(rp), np.asarray(cis)
     vls = (np.ones(csr.nnz, np.float32) if vls is None
            else np.asarray(vls, dtype=np.float32))
-    if csr.nnz:
-        w_, p_ = mb.choose_layout(rp, cis, csr.ncols)
-    else:
-        w_, p_ = mb.LANE, 1
     if window is None:
-        window = w_
-    pair = p_ if window == w_ else 1
+        window = mb.choose_window(rp, cis, csr.ncols)
 
     splits = balanced_row_splits(rp, n_shards)
     rows_per = max(int(np.max(np.diff(splits))), 1)
@@ -154,7 +149,7 @@ def partition_ring_mb(
             row_buckets.append(
                 mb.build_microblocks_host(
                     rows_per, cols_per, brp, bc[order], lvls[sel][order],
-                    window=window, pair=pair, device="cpu",
+                    window=window, pair=1, device="cpu",
                 )
             )
         layouts.append(row_buckets)
@@ -175,8 +170,7 @@ def partition_ring_mb(
             groups[d, k] = l.n_microrows // mb.ACC_GROUP
 
     return RingMicroBlock(
-        csr.nrows, csr.ncols, csr.nnz, n_shards, rows_per, cols_per, window,
-        pair,
+        csr.nrows, csr.ncols, csr.nnz, n_shards, rows_per, cols_per, window, 1,
         torch.from_numpy(vals), torch.from_numpy(meta), torch.from_numpy(rbcb),
         splits[:-1].astype(np.int64), np.diff(splits).astype(np.int64),
         csplits, torch.from_numpy(groups), int(groups.max(initial=0)),

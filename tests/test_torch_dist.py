@@ -22,7 +22,8 @@ from csr_tpu_torch.parallel import dist, mb_dist
 from csr_tpu_torch.parallel.partition import make_mesh, partition_rows
 from csr_tpu_torch.utils.serialization import parallel_from_arrays
 
-from torch_util import Scipy, assert_same_partition, both_csr, fields_of
+from torch_util import (Scipy, assert_same_partition, both_csr, fields_of,
+                        port_chooser)
 from util import assert_spmv_close
 
 needs_devices = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -40,7 +41,8 @@ def _matrix(shape, density, seed):
 
 @pytest.mark.parametrize("structure_only", [False, True])
 @pytest.mark.parametrize("window", [None, 128, 256])
-def test_dist_layouts_byte_equal(window, structure_only):
+def test_dist_layouts_byte_equal(window, structure_only, monkeypatch):
+    port_chooser(monkeypatch)
     m, _ = _matrix((700, 900), 0.05, 5)
     ref_csr, csr = both_csr(m, structure_only)
     for ref_fn, fn, cls in (

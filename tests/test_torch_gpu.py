@@ -230,6 +230,25 @@ def test_default_device_is_the_card(cuda_device):
     assert y.device.type == "cuda"
 
 
+def test_default_mult_vec_takes_the_chosen_layout_on_card(cuda_device):
+    """A default ``CSR.mult_vec`` of a mid-size uniform matrix (4096 x
+    6000, density 0.01) is one SpMV launch on the layout of
+    ``choose_layout``'s (window, pair), and matches scipy."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    a = random_matrix(4096, 6000, 0.01, seed=61, big_group=False)
+    c = CSR.from_scipy(a)
+    x = np.random.default_rng(62).uniform(-1, 1, 6000).astype(np.float32)
+    before = spmv.launches
+    y = c.mult_vec(torch.from_numpy(x).to(cuda_device))
+    torch.cuda.synchronize()
+    assert spmv.launches == before + 1
+    layout = cuda_k._cached_layout(c)
+    assert (layout.window, layout.pair) == mb.choose_layout(
+        a.indptr, a.indices, 6000) == (256, 1)
+    assert_spmv_close(y.cpu().numpy(), a.astype(np.float64) @ x, Scipy(a), x)
+
+
 @pytest.mark.parametrize("window", [128, 256])
 def test_bucket_kernel_matches_reference_on_card(window, cuda_device):
     """Every ring step's ``held`` row (so every bucket of every row shard,

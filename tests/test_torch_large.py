@@ -21,7 +21,7 @@ from csr_tpu_torch import CSR, kernels
 from csr_tpu_torch.kernels import cuda as cuda_k
 from csr_tpu_torch.ops import microblock, spmv
 
-from torch_util import Scipy
+from torch_util import Scipy, port_chooser
 from util import assert_spmv_close
 
 
@@ -49,7 +49,9 @@ def _same_bytes(got, want):
     (8, (512, 640)),     # 1 chunk, 1 panel: the unsplit layout
 ])
 @pytest.mark.parametrize("structure_only", [False, True])
-def test_large_layouts_byte_equal(max_windows, shape, structure_only):
+def test_large_layouts_byte_equal(max_windows, shape, structure_only,
+                                  monkeypatch):
+    port_chooser(monkeypatch)
     m = _matrix(False, *shape, seed=sum(shape) + max_windows)
     vals = None if structure_only else m.data
     got = spmv.build_large_layouts(*shape, m.indptr, m.indices, vals,

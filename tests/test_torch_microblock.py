@@ -1,13 +1,16 @@
 """The port's micro-block layouts are byte-equal to the JAX package's
 (``csr_tpu.ops.microblock.build_microblocks_host``), on the native packer
-and on the numpy path, for every (window, pair)."""
+and on the numpy path, for every (window, pair); the port's layout
+chooser picks (256, 1) wherever it packs."""
 
 import numpy as np
 import pytest
 import scipy.sparse as sps
+from hypothesis import HealthCheck, given, settings
 
 from csr_tpu.ops import microblock as ref_mb
 from csr_tpu_torch import CSR, native
+from csr_tpu_torch import test_utils as tu
 from csr_tpu_torch.ops import microblock as mb
 
 from torch_util import random_matrix
@@ -57,18 +60,78 @@ def test_layout_bytes_match_reference(window, pair, path, monkeypatch):
 
 @pytest.mark.parametrize("density", [0.002, 0.02, 0.2])
 def test_default_layout_matches_reference(density):
-    """The cost model (TPU-measured STEP_COST, unchanged) picks the same
-    (window, pair) in both packages, and the default builds agree."""
+    """The port's default build is the JAX package's build at the (window,
+    pair) the port chooses, byte for byte, and both packages count the
+    micro-rows of all six variants alike."""
     a = random_matrix(512, 640, density, seed=3, big_group=False)
     args = (512, 640, a.indptr, a.indices, a.data)
-    assert mb.choose_layout(a.indptr, a.indices, 640) == ref_mb.choose_layout(
-        a.indptr, a.indices, 640)
-    for window, pair in WINDOW_PAIR:
-        assert mb.estimate_microrows(a.indptr, a.indices, window, 640, pair) == \
-            ref_mb.estimate_microrows(a.indptr, a.indices, window, 640, pair)
-    ref = ref_mb.build_microblocks_host(*args)
+    window, pair = mb.choose_layout(a.indptr, a.indices, 640)
+    for w, p in WINDOW_PAIR:
+        assert mb.estimate_microrows(a.indptr, a.indices, w, 640, p) == \
+            ref_mb.estimate_microrows(a.indptr, a.indices, w, 640, p)
+    ref = ref_mb.build_microblocks_host(*args, window=window, pair=pair)
     _assert_same(mb.build_microblocks_host(*args), ref)
     _assert_same(mb.build_microblocks(CSR.from_scipy(a)), ref)
+
+
+@pytest.mark.parametrize("density", [0.002, 0.02, 0.2])
+def test_choose_window_is_the_chosen_window(density):
+    a = random_matrix(512, 640, density, seed=3, big_group=False)
+    window, _ = mb.choose_layout(a.indptr, a.indices, 640)
+    assert mb.choose_window(a.indptr, a.indices, 640) == window
+    assert mb.choose_window(a.indptr, a.indices) == window
+    assert mb.build_microblocks_host(512, 640, a.indptr, a.indices,
+                                     a.data).window == window
+
+
+def _microrows(rp, cols, ncols):
+    return {(w, p): mb.estimate_microrows(rp, cols, w, ncols, p)
+            for w, p in WINDOW_PAIR}
+
+
+@pytest.mark.parametrize("density", [0.002, 0.02, 0.2])
+def test_chooser_picks_the_fewest_microrows(density):
+    """(256, 1) at three densities, and no variant has fewer micro-rows."""
+    a = random_matrix(1024, 1000, density, seed=5)
+    assert mb.choose_layout(a.indptr, a.indices, 1000) == (256, 1)
+    m = _microrows(a.indptr, a.indices, 1000)
+    assert m[256, 1] == min(m.values())
+
+
+def test_chooser_past_the_packing_range():
+    """Past the 128-wide windows' range the pick is (256, 1); past the
+    256-wide windows' range (128, 1), and the build gives no layout."""
+    rp = np.array([0, 1, 1], np.int64)
+    cols = np.array([5], np.int32)
+    wide256 = 65535 * 256
+    assert not mb.in_range(2, wide256, 128)
+    assert mb.choose_layout(rp, cols, wide256) == (256, 1)
+    too_wide = wide256 + 1
+    assert mb.choose_layout(rp, cols, too_wide) == (128, 1)
+    assert mb.build_microblocks_host(2, too_wide, rp, cols, None) is None
+
+
+def test_chooser_on_an_empty_matrix():
+    rp, cols = np.zeros(6, np.int64), np.zeros(0, np.int32)
+    assert mb.choose_layout(rp, cols, 7) == (128, 1)
+    assert mb.choose_window(rp, cols) == 128
+    lay = mb.build_microblocks_host(5, 7, rp, cols, None)
+    assert (lay.window, lay.pair, lay.n_microrows) == (128, 1, 0)
+
+
+@settings(max_examples=25, deadline=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(tu.csrs())
+def test_chooser_never_more_microrows_than_128_1(csr):
+    """On any drawn matrix the pick has no more micro-rows than (128, 1)
+    (none of the six has fewer), and the default build is the pick."""
+    rp, cis, _ = csr.host_arrays()
+    pick = mb.choose_layout(rp, cis, csr.ncols)
+    built = mb.build_microblocks(csr)
+    assert (built.window, built.pair) == pick
+    if csr.nnz:
+        m = _microrows(rp, cis, csr.ncols)
+        assert m[pick] == built.n_microrows == min(m.values()) <= m[128, 1]
 
 
 def test_layout_from_arrays_carries_reference_layout():

@@ -29,7 +29,7 @@ from csr_tpu_torch.parallel.partition import make_mesh
 from csr_tpu_torch.utils.serialization import parallel_from_arrays
 
 from torch_util import (Scipy, assert_same_partition, both_csr, fields_of,
-                        random_matrix)
+                        port_chooser, random_matrix)
 from util import assert_spmv_close
 
 RING_TENSORS = ("vals", "meta", "rbcb")
@@ -44,7 +44,8 @@ def _matrix_900():
 
 @pytest.mark.parametrize("window", [None, 128, 256])
 @pytest.mark.parametrize("n_shards", [2, 4, 8])
-def test_ring_layouts_byte_equal(n_shards, window):
+def test_ring_layouts_byte_equal(n_shards, window, monkeypatch):
+    port_chooser(monkeypatch)
     a = random_matrix(520, 1300, 0.03, seed=n_shards)
     ref_csr, csr = both_csr(a)
     ref = ref_mb_ring.partition_ring_mb(ref_csr, n_shards, window=window)

@@ -15,6 +15,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def port_chooser(monkeypatch):
+    """Make ``csr_tpu.ops.microblock.choose_layout`` the port's chooser
+    for the rest of one test: the JAX package derives its default (window,
+    pair) there (its builds and its ``mb_dist``/``mb_ring`` partitions),
+    so default layouts then compare byte for byte with the port's."""
+    from csr_tpu.ops import microblock as ref_mb
+    from csr_tpu_torch.ops import microblock as mb
+
+    monkeypatch.setattr(ref_mb, "choose_layout", mb.choose_layout)
+
+
 def random_matrix(nrows, ncols, density, seed, big_group=True):
     """Seeded f32 scipy CSR matrix.  With ``big_group``, rows 3 and 4 fill
     most of the first 128-column window, so the (rb 0, cb 0) group holds
