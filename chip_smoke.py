@@ -5,7 +5,7 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
 It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
 ``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
-runs twenty phases; any failure raises and the script exits nonzero.  It
+runs twenty-one phases; any failure raises and the script exits nonzero.  It
 needs a CUDA device and never falls back to the CPU: every matrix is
 built with no device named and must land on the card.
 
@@ -87,7 +87,9 @@ built with no device named and must land on the card.
     product (CUDA events), scipy's on the host, ``torch.sparse.mm`` of the
     same CSR tensors (timed only) and ESC's chunk budget at 2^24, 2^26
     and 2^28 terms.
-18. ``spmv_large``: ``mult_vec`` of a 4,300,000 x 4,096 matrix with 8
+18. ``spmv_large`` (with ``_CSR_CROSSOVER`` set past every matrix for the
+    phase, so that the CSR-form route, which phase 21 takes at this
+    matrix, stays off): ``mult_vec`` of a 4,300,000 x 4,096 matrix with 8
     power-law entries a row (past the packer's 32767 row windows: 2
     chunks, 2 launches) against scipy, each panel's launch against
     ``spmv_reference``, ``mult_vec_t`` on the in-range transpose; then
@@ -119,6 +121,25 @@ built with no device named and must land on the card.
     SpMM kernel (B x 256, x 50) and a D = 4 ring step on each window's
     pair-1 layout.  ``choose_layout``'s pick must take at most 1.10 times
     the fastest variant's SpMV time at every matrix.
+21. The CSR-form SpMV kernel (``csrc/spmv_csr.cu``) and its route: the
+    kernel against ``spmv_csr_reference`` and scipy on small seeded
+    matrices (empty rows and an empty matrix, a row of 4.4 shares, int32
+    and int64 row pointers, colinds and values off a 16 B boundary,
+    structure-only, ``out=``, an inf in x that some rows use); then at
+    phase 20's hypersparse matrix, phase 18's 4.3M x 4,096, the flagship
+    and the MovieLens-25M shape (each both ways), a sweep of 131,072-row
+    power-law matrices (12 a row over 4,096 to 2^22 columns, 64 and 327
+    over 2^20) and the realistic hypersparse case (8,388,608 x 2^20,
+    ``min(zipf(2.4), 4096)`` entries a row, about 18.5M, both ways, never
+    packed): the first ``mult_vec`` / ``mult_vec_t`` of a fresh CSR
+    (route and call, host seconds) against scipy, its launches counted
+    from 0 and held to its route (one CSR-form launch each way at the
+    realistic case, no micro-block layout built on that route); the
+    kernel against ``spmv_csr_reference``; device time (``device_ms``) of
+    the CSR-form kernel, the micro-block kernel (or ``spmv_large``) where
+    it runs, ``torch.sparse_csr_tensor(...) @ x`` and the plain version,
+    beside the CSR bound; bytes a stored entry of both forms; the route's
+    pick within 1.10 times the faster kernel.
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
@@ -1644,8 +1665,23 @@ def check_panels(tag, chunks, a, x):
     return worst
 
 
-def phase_large(fl_csr, fl_a, x_fl, card, nrows=4_300_000, ncols=4096,
-                windows=64):
+def phase_large(fl_csr, fl_a, x_fl, card):
+    """[18] ``spmv_large`` (:func:`large_path`), with ``_CSR_CROSSOVER``
+    set past every matrix for the phase: the 4,300,000-row matrix takes the
+    CSR-form kernel by default (phase 21), and this phase holds the
+    micro-block kernel's large path."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    saved = cuda_k._CSR_CROSSOVER
+    cuda_k._CSR_CROSSOVER = float("inf")
+    try:
+        return large_path(fl_csr, fl_a, x_fl, card)
+    finally:
+        cuda_k._CSR_CROSSOVER = saved
+
+
+def large_path(fl_csr, fl_a, x_fl, card, nrows=4_300_000, ncols=4096,
+               windows=64):
     """[18] ``spmv_large``: a 4,300,000 x 4,096 matrix with 8 entries a row
     (past the packer's 32767 row windows, so 2 row chunks), ``mult_vec``
     against scipy and each panel's launch against ``spmv_reference``, and
@@ -1752,7 +1788,7 @@ def phase_vmap(tag, csr, a, k, seed, card):
         torch.cuda.synchronize()
         counts = launch_counts()
         assert counts == {"spmv_microblock": 0, "spmm_microblock": 1,
-                          "spmv_bucket": 0}, counts
+                          "spmv_bucket": 0, "spmv_csr": 0}, counts
         Y_loop = loop()
         ms_batch, ms_loop = device_ms(batch), device_ms(loop)
     assert Y.shape == (k, csr.nrows), Y.shape
@@ -1886,7 +1922,7 @@ def phase_harness(fl_csr, fl_a, ml_csr, ml_a, card):
     assert 0 < line["vs_baseline"] <= 1.05, line
     assert set(r.shares) == {"eager_vs_scipy", "graph_vs_eager"}, r.shares
     assert r.launches == {"spmv_microblock": 300, "spmm_microblock": 0,
-                          "spmv_bucket": 0}, r.launches
+                          "spmv_bucket": 0, "spmv_csr": 0}, r.launches
     assert r.replays == 3, r.replays
     out["bench"] = dict(line, ms=r.seconds * 1e3, eager_ms=r.eager_seconds * 1e3,
                         prep_s=r.prep_seconds, **r.shares)
@@ -2073,6 +2109,271 @@ def layout_spmm_ring(name, a, x, card, n_shards=4):
     return out
 
 
+CSR_KERNEL = {
+    "name": "spmv_csr",
+    "route": "cuda",
+    "source": "csr_tpu_torch/csrc/spmv_csr.cu",
+    "replaces": "csr_tpu/ops/spmv.py:79",
+}
+#: phase 21's sweep to place the crossover: (entries a row, columns) of
+#: 131,072-row matrices of power_law_rows
+CSR_SWEEP = ((12, 4096), (12, 1 << 16), (12, 1 << 20), (12, 1 << 22),
+             (64, 1 << 20), (327, 1 << 20))
+
+
+def realistic_hypersparse(nrows=8_388_608, ncols=1 << 20, seed=21):
+    """Host CSR arrays of the realistic hypersparse rating matrix: users x
+    items as in the Amazon product-review sets, each row's length
+    ``min(zipf(2.4), 4096)`` (about 18.5M entries, 2.2 a row), item
+    columns drawn by power_law_rows' power law (exponent 0.6 over a
+    random permutation of the ids; repeats kept), values standard
+    normal, all from ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    rowptr = np.zeros(nrows + 1, np.int64)
+    np.cumsum(np.minimum(rng.zipf(2.4, nrows), 4096), out=rowptr[1:])
+    nnz = int(rowptr[-1])
+    pop = np.arange(1, ncols + 1, dtype=np.float64) ** -0.6
+    cdf = np.cumsum(pop / pop.sum())
+    rank = np.minimum(np.searchsorted(cdf, rng.random(nnz)), ncols - 1)
+    cols = rng.permutation(ncols).astype(np.int32)[rank]
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return nrows, ncols, rowptr, cols, vals
+
+
+def csr_cases(fl, ml):
+    """Phase 21's matrices, made one at a time: (name, (nrows, ncols,
+    rowptr, cols, vals), the directions to run: False for mult_vec, True
+    for mult_vec_t)."""
+    both = (False, True)
+    yield "hypersparse", (65_536, 1 << 20, *power_law_rows(
+        65_536, 1 << 20, 12, seed=12 + (1 << 20))), both
+    yield "4.3M x 4,096", (4_300_000, 4096, *power_law_rows(
+        4_300_000, 4096, 8, seed=18)), both
+    yield "flagship", fl[:5], both
+    yield "MovieLens shape", ml[:5], both
+    for per_row, ncols in CSR_SWEEP:
+        yield (f"sweep {per_row} a row over {ncols}",
+               (131_072, ncols, *power_law_rows(131_072, ncols, per_row,
+                                                seed=per_row + ncols)), (False,))
+    yield "realistic", realistic_hypersparse(), both
+
+
+def csr_views(a, offset_c, offset_v, ptr_dtype, structure_only=False):
+    """The CSR arrays of scipy ``a`` on the card, ``colinds`` and
+    ``values`` as views ``offset_c`` and ``offset_v`` floats past a 16 B
+    boundary (so the kernel takes its scalar or its 16 B path), rowptrs
+    of ``ptr_dtype``."""
+    nnz = a.nnz
+    cbuf = torch.zeros(nnz + 8, dtype=torch.int32, device="cuda")
+    vbuf = torch.zeros(nnz + 8, dtype=torch.float32, device="cuda")
+    ci = cbuf[offset_c : offset_c + nnz]
+    ci.copy_(torch.from_numpy(a.indices.astype(np.int32)))
+    v = vbuf[offset_v : offset_v + nnz]
+    v.copy_(torch.from_numpy(a.data.astype(np.float32)))
+    rp = torch.from_numpy(a.indptr.astype(np.int64)).to("cuda", ptr_dtype)
+    return rp, ci, None if structure_only else v
+
+
+def phase_csr_kernel_vs_plain():
+    """[21] The CSR-form kernel against spmv_csr_reference (and scipy) on
+    small seeded matrices on the card: empty rows and an empty matrix, a
+    row longer than many shares together, int32 and int64 rowptrs,
+    colinds and values off a 16 B boundary (the same way and not),
+    structure-only, ``out=`` accumulation, and an inf in x that one row
+    uses.  Returns the largest difference."""
+    from csr_tpu_torch.ops import spmv as spmv_op
+
+    rng = np.random.default_rng(2100)
+    worst = 0.0
+    lil = sps.lil_matrix((600, 9000), dtype=np.float32)
+    lil[17, :] = rng.standard_normal(9000)          # 4.4 shares of one row
+    lil[18, 5] = 2.0
+    lil[400:430, :300] = rng.standard_normal((30, 300))
+    mats = [("random", sps.random(3000, 5000, 0.004, format="csr",
+                                  random_state=rng, dtype=np.float32)),
+            ("long row, empty rows", lil.tocsr()),
+            ("empty", sps.csr_matrix((50, 40), dtype=np.float32))]
+    for name, a in mats:
+        x = rng.standard_normal(a.shape[1]).astype(np.float32)
+        xd = torch.from_numpy(x).cuda()
+        ref64 = a.astype(np.float64) @ x
+        for oc, ov, pd, so in ((0, 0, torch.int32, False), (1, 1, torch.int64, False),
+                               (3, 3, torch.int32, False), (1, 2, torch.int64, False),
+                               (2, 0, torch.int32, True)):
+            rp, ci, v = csr_views(a, oc, ov, pd, so)
+            b = a if not so else sps.csr_matrix(
+                (np.ones(a.nnz, np.float32), a.indices, a.indptr), shape=a.shape)
+            y = spmv_op.spmv_csr(rp, ci, v, xd)
+            y_ref = spmv_op.spmv_csr_reference(rp, ci, v, xd)
+            out = torch.full((a.shape[0],), 0.5, device="cuda")
+            y_out = spmv_op.spmv_csr(rp, ci, v, xd, out=out)
+            torch.cuda.synchronize()
+            assert y_out is out
+            err = float((y - y_ref).abs().max()) if a.shape[0] else 0.0
+            worst = max(worst, err)
+            spmv_share(y, y_ref.cpu().numpy(), b, x)
+            spmv_share(y, b.astype(np.float64) @ x, b, x)
+            spmv_share(y_out - 0.5, b.astype(np.float64) @ x, b, x)
+            print(f"[21] {name} ({a.shape[0]}x{a.shape[1]}, nnz {a.nnz}), colinds "
+                  f"+{oc}, values +{ov}, rowptrs {pd}, structure-only {so}: "
+                  f"kernel vs plain max abs err {err:.3g}; out= adds")
+        del ref64
+    # an inf in x used by one row only
+    a = mats[1][1]
+    x = rng.standard_normal(a.shape[1]).astype(np.float32)
+    x[5] = np.inf
+    rp, ci, v = csr_views(a, 1, 1, torch.int32)
+    y = spmv_op.spmv_csr(rp, ci, v, torch.from_numpy(x).cuda()).cpu().numpy()
+    uses = np.flatnonzero(a[:, [5]].toarray()[:, 0] != 0)
+    bad = np.flatnonzero(~np.isfinite(y))
+    assert set(bad) == set(uses), (bad, uses)
+    print(f"[21] inf in x[5]: non-finite rows {bad.tolist()}, the rows that "
+          f"use column 5 {uses.tolist()}")
+    return worst
+
+
+def phase_csr(fl, ml, card):
+    """[21] The CSR-form kernel and its route on the card, at every
+    matrix of csr_cases: the first CSR.mult_vec / mult_vec_t of a fresh
+    CSR (the route's decision and the call timed on the host) against
+    scipy, with each path's launches counted from 0 and held to its
+    route (the realistic case in one launch each way); the kernel against
+    spmv_csr_reference on the CSR tensors it reads; the micro-block
+    kernel (or spmv_large) where the matrix is not the realistic case,
+    against scipy; device time (device_ms, the best of two rounds in
+    opposite orders) of the CSR-form kernel, the micro-block kernel and
+    one torch.sparse_csr_tensor(...) @ x, and of the plain version; the
+    CSR bound; bytes a stored entry of both forms; and the assertion that
+    the route's pick takes at most CHOICE_SLACK times the faster kernel's
+    time.  Returns the table."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
+    from csr_tpu_torch.ops import spmv as spmv_op
+    from csr_tpu_torch.utils.profiling import least_ms
+
+    rows, csr_counts = [], 0
+    for i, (name, (nrows, ncols, rp, cols, vals), dirs) in enumerate(csr_cases(fl, ml)):
+        nnz = len(cols)
+        csr = CSR(nrows, ncols, nnz, rp, cols, vals)
+        on_card(csr)
+        a = sps.csr_matrix((vals, cols, rp), shape=(nrows, ncols))
+        rng = np.random.default_rng(2110 + i)
+        for t in dirs:
+            b = a.T.tocsr() if t else a
+            tag = f"{name}{' transpose' if t else ''}"
+            x = rng.standard_normal(b.shape[1]).astype(np.float32)
+            xd = torch.from_numpy(x).cuda()
+            ref = b.astype(np.float64) @ x
+            with use_kernel("cuda"):
+                launch_counts(reset=True)
+                t0 = time.perf_counter()
+                route = cuda_k._spmv_route(csr, t)
+                t1 = time.perf_counter()
+                # the realistic case is never packed into micro-blocks
+                assert name != "realistic" or route == "csr", (tag, route)
+                y = csr.mult_vec_t(xd) if t else csr.mult_vec(xd)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                counts = launch_counts()
+            large = cuda_k._needs_large(*b.shape)
+            if route == "csr":
+                want = {"spmv_csr": 1}
+                assert getattr(csr, "_mb_layout_t_cache" if t else "_mb_layout_cache",
+                               None) is None
+                assert getattr(csr, "_mb_large_t_cache" if t else "_mb_large_cache",
+                               None) is None
+            elif large:
+                want = {"spmv_microblock": sum(
+                    len(p) for _, p in cuda_k._cached_large(csr, t))}
+            else:
+                want = {"spmv_microblock": 1}
+            assert {k: n for k, n in counts.items() if n} == want, (tag, route, counts)
+            csr_counts += counts["spmv_csr"]
+            share = spmv_share(y, ref, b, x)
+            del y
+
+            fm = cuda_k._cached_csr_t(csr) if t else cuda_k._csr_form(csr)
+            csr_bytes_entry = sum(u.numel() * u.element_size()
+                                  for u in fm if u is not None) / nnz
+            mb_bytes_entry = cuda_k._layout_bytes_per_entry(csr, t)
+            yk = spmv_op.spmv_csr(*fm, xd)
+            yr = spmv_op.spmv_csr_reference(*fm, xd)
+            torch.cuda.synchronize()
+            err = float((yk - yr).abs().max())
+            share_plain = spmv_share(yk, yr.cpu().numpy(), b, x)
+            spmv_share(yk, ref, b, x)
+            del yk, yr
+
+            fns = {"csr": lambda: spmv_op.spmv_csr(*fm, xd)}
+            lib = torch_csr(b)
+            fns["library"] = lambda: lib @ xd
+            if name != "realistic":
+                if large:
+                    mb = cuda_k._cached_large(csr, t)
+                    fns["microblock"] = lambda: spmv_op.spmv_large(mb, b.shape[1], xd)
+                else:
+                    mb = cuda_k._cached_layout_t(csr) if t else cuda_k._cached_layout(csr)
+                    fns["microblock"] = lambda: spmv_op.spmv(mb, xd)
+                spmv_share(fns["microblock"](), ref, b, x)
+            ms = {k: float("inf") for k in fns}
+            for order in (list(fns), list(fns)[::-1]):
+                for k in order:
+                    ms[k] = min(ms[k], device_ms(fns[k], 10))
+            plain_ms = device_ms(lambda: spmv_op.spmv_csr_reference(*fm, xd), 2)
+            bound_ms, by = least_ms(csr_bytes(nnz, b.shape[0], b.shape[1], b.shape[0]),
+                                    2 * nnz)
+            assert bound_ms <= ms["csr"], (tag, bound_ms, ms)
+            kernels_ms = [ms[k] for k in ("csr", "microblock") if k in ms]
+            pick = ms["csr" if route == "csr" else "microblock"]
+            row = dict(matrix=tag, shape=list(b.shape), nnz=nnz, route=route,
+                       large=large, csr_ms=ms["csr"],
+                       microblock_ms=ms.get("microblock"), library_ms=ms["library"],
+                       plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                       csr_bytes_per_entry=csr_bytes_entry,
+                       microblock_bytes_per_entry=mb_bytes_entry,
+                       route_s=t1 - t0, first_call_s=t2 - t0, share=share,
+                       share_plain=share_plain, max_abs_err=err,
+                       launches=counts)
+            rows.append(row)
+            mbs = ("not run" if "microblock" not in ms else
+                   f"{ms['microblock']:.5f} ms ({'spmv_large' if large else 'one layout'})")
+            print(f"[21] {tag} ({b.shape[0]}x{b.shape[1]}, nnz {nnz}): route {route}; "
+                  f"device time: CSR-form kernel {ms['csr']:.5f} ms ({bound_ms / ms['csr']:.4f} "
+                  f"of it the bound), micro-block {mbs}, torch.sparse CSR @ x "
+                  f"{ms['library']:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.5f} "
+                  f"ms by {by}; bytes a stored entry: CSR form {csr_bytes_entry:.2f}, "
+                  f"micro-block at (256, 1) {mb_bytes_entry:.2f}; first "
+                  f"{'mult_vec_t' if t else 'mult_vec'} of a fresh CSR {t2 - t0:.3f} s "
+                  f"(route {t1 - t0:.3f} s); launches {want}; share of bound vs scipy "
+                  f"{share:.3g}, kernel vs plain {share_plain:.3g} (max abs err {err:.3g}); "
+                  f"card {card}")
+            assert pick <= CHOICE_SLACK * min(kernels_ms), (tag, route, ms)
+            del fns, lib, fm
+            torch.cuda.empty_cache()
+        del csr, a, b
+        torch.cuda.empty_cache()
+    print(json.dumps({"csr_route": rows}))
+    return rows, csr_counts
+
+
+def csr_summary(rows, corner_err):
+    """The spmv_csr entry of the kernels line: phase 21's numbers at the
+    hypersparse matrix (mult_vec), and at the realistic case both ways
+    beside them."""
+    by = {r["matrix"]: r for r in rows}
+    hyper = by["hypersparse"]
+    out = dict(max_abs_err=max([corner_err] + [r["max_abs_err"] for r in rows]),
+               ms=hyper["csr_ms"], plain_ms=hyper["plain_ms"],
+               bound_ms=hyper["bound_ms"], bound_by=hyper["bound_by"],
+               library_ms=hyper["library_ms"],
+               microblock_ms=hyper["microblock_ms"])
+    for tag, name in (("realistic", "realistic"),
+                      ("realistic_t", "realistic transpose")):
+        for key in ("csr_ms", "plain_ms", "bound_ms", "library_ms"):
+            out[f"{key.replace('csr_', '')}_{tag}"] = by[name][key]
+    return out
+
+
 def main():
     card = phase_environment()
     phase_kernel_vs_plain()
@@ -2188,6 +2489,10 @@ def main():
     harness_paths = phase_harness(fl_csr, fl_a, ml_csr, ml_a, card)
     # the six (window, pair) layouts, and the chooser held to the fastest
     layouts = phase_layouts(fl, ml, card)
+    # the CSR-form kernel and its route (each matrix's launches counted
+    # from 0 inside the phase, after the counts above were read)
+    csr_err = phase_csr_kernel_vs_plain()
+    csr_rows, csr_launches = phase_csr(fl, ml, card)
 
     def yardsticks(name):
         """Device times, the bound and the chained times at the flagship,
@@ -2208,6 +2513,7 @@ def main():
         dict(SPMM_KERNEL, launches=spmm_launches, max_abs_err=spmm_err,
              **yardsticks("SpMM")),
         dict(BUCKET_KERNEL, launches=bucket_launches, **bucket),
+        dict(CSR_KERNEL, launches=csr_launches, **csr_summary(csr_rows, csr_err)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,23 +5,40 @@ CUDA kernel backend, the tuned backend (counterpart of
 ``to_handle`` returns a handle whose micro-block layouts (of the matrix
 and of its transpose) are packed on the host at first use and cached on
 the matrix.  SpMV in both directions runs the hand-written kernel behind
-:func:`csr_tpu_torch.ops.spmv.spmv`; SpMM (``mult_dense``) and the
+:func:`csr_tpu_torch.ops.spmv.spmv`, or, where the layout would be mostly
+padding, the one behind :func:`csr_tpu_torch.ops.spmv.spmv_csr` on the
+matrix's own CSR tensors; SpMM (``mult_dense``) and the
 sparse leg of SpGEMM (``mult_ab``, ``mult_abt``) run the one behind
 :func:`csr_tpu_torch.ops.spmm.spmm`.  On a CPU matrix each wrapper runs
 its kernel's plain PyTorch version.
 
 Routing, as in the JAX package, decided from shapes and dtypes before
-any launch:
+any launch (and, for SpMV, from the structure's micro-row count):
 
 * ``nnz == 0`` returns zeros;
 * f64 values or operands go to the ``torch`` backend, as the JAX package
   routes f64 away from its kernel.  A kernel templated on f64 is ROADMAP
   Queue 1 item 7;
-* SpMV of a matrix (or, for ``mult_vec_t``, a transpose) of more than
+* f32 SpMV of a matrix (or, for ``mult_vec_t``, a transpose) whose
+  (256, 1) micro-block layout would cost more than
+  :data:`_CSR_CROSSOVER` device bytes a stored entry runs the CSR-form
+  kernel ``ops/spmv.py:spmv_csr`` (:func:`_spmv_route` says ``"csr"``):
+  one launch whatever the size, on the matrix's own tensors, with no
+  layout built; for ``mult_vec_t`` on the transpose's CSR tensors, made
+  once by the native host transpose and cached on the matrix (a
+  ``layout-build-csr`` trace event).  The statistic is the layout's
+  micro-row count, taken with torch ops on the matrix's device
+  (:func:`_microrows`; per panel past the packing range) and cached.
+  The crossover was measured on the H100 (chip_smoke phase 21, PERF.md).
+  Under a ``torch.func`` transform the micro-block route's vmap rule runs
+  instead (one SpMM launch a batch, the layout built on demand);
+* other SpMV of a matrix (or a transpose) of more than
   :data:`_LARGE_WINDOWS` row windows, or outside the packing range,
   runs ``ops/spmv.py:spmv_large``: chunks of :data:`_LARGE_WINDOWS` row
   windows and panels of as many column windows, the SpMV kernel once a
-  panel.  The layouts are cached on the matrix as the others are.  SpMM
+  panel (``"large"``).  The layouts are cached on the matrix as the
+  others are.  The rest runs the micro-block kernel on one layout
+  (``"microblock"``).  SpMM
   of a matrix outside the packing range goes to the ``torch`` backend,
   as the JAX package runs no SpMM on panels;
 * SpMM of a matrix whose dense f32 form fits the dense budget of
@@ -34,9 +51,10 @@ any launch:
   :mod:`csr_tpu_torch.ops.spgemm` and multiplies A by it as SpMM does;
   past that budget it runs that module's expand-sort-compress (ESC).
 
-SpMV in either direction goes through
-:func:`csr_tpu_torch.ops.spmv.product`, so ``torch.func.vmap`` over the
-operand runs one SpMM launch a layout on the batch.  No product has a
+Micro-block SpMV in either direction goes through
+:func:`csr_tpu_torch.ops.spmv.product`, and so does any SpMV under a
+``torch.func`` transform, so ``torch.func.vmap`` over the operand runs
+one SpMM launch a layout on the batch.  No product has a
 backward: ``mult_vec``, ``mult_vec_t`` and ``mult_dense`` raise
 ValueError when grad mode is on and the operand or the values require
 grad, on the CPU and on the card alike (the ``torch`` backend
@@ -53,6 +71,7 @@ import numpy as np
 import torch
 
 from csr_tpu_torch import native
+from csr_tpu_torch.dtypes import ptr_dtype
 from csr_tpu_torch.kernels import torch as _torch_k
 from csr_tpu_torch.kernels import trace
 from csr_tpu_torch.ops import microblock
@@ -81,6 +100,114 @@ def _needs_large(nrows: int, ncols: int) -> bool:
     """Whether SpMV of an ``nrows x ncols`` matrix runs ``spmv_large``."""
     return (-(-nrows // microblock.LANE) > _LARGE_WINDOWS
             or not _packable(nrows, ncols))
+
+
+#: the CSR-form route: SpMV of a matrix (or, for ``mult_vec_t``, of its
+#: transpose) whose micro-block layout at (256, 1) would cost more device
+#: bytes a stored entry than this (:func:`_layout_bytes_per_entry`) runs
+#: ``ops/spmv.py:spmv_csr`` on the matrix's own CSR tensors; the rest
+#: runs the micro-block kernel (``spmv_large`` past the packing range).
+#: Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 21, PERF.md):
+#: the micro-block kernel was the faster at every matrix up to 16.08 B an
+#: entry (1.5x at 12 entries a row over 4,096 columns; 2.5-3.6x at the
+#: flagship, 7.2, and the MovieLens-25M shape, 9.5-10.1, both ways; 1.7x
+#: at the 4.3M x 4,096 transpose, 12.07), the CSR-form kernel from 24.13
+#: on (1.33x at 4.3M x 4,096; 2.4-16x from 75.5 up); the ratio of the
+#: two, log-interpolated between 16.08 and 24.13, crosses 1 at 20.8.
+#: Below it a stripe of 128 rows reuses x's 256-column windows, which the
+#: CSR form's row-by-row gather cannot.
+_CSR_CROSSOVER = 20.0
+#: device bytes of one micro-row: 128 f32 values, 128 u16 metadata and
+#: its i32 ``rbcb``
+_MICROROW_BYTES = microblock.LANE * (4 + 2) + 4
+
+
+def _microrows(rows, cols, nrows: int, ncols: int) -> int:
+    """Micro-rows of the (256, 1) micro-block layout of the entries at
+    ``(rows, cols)`` (int64 tensors) of an ``nrows x ncols`` matrix, or,
+    past :func:`_needs_large`'s limit, of ``spmv_large``'s chunk and panel
+    layouts together: on the tensors' device with torch ops, without the
+    host planner's sort.  Entries are keyed by (stripe, 256-column window),
+    a stripe being a 128-row window of one panel; each key holds
+    ``ceil(count / SLOT_CAP)`` micro-rows, and each stripe's are padded to
+    ``ACC_GROUP``.  Equals ``microblock.estimate_microrows(rp, cols, 256)``
+    wherever the matrix packs."""
+    span = ncols
+    if _needs_large(nrows, ncols):
+        span = _LARGE_WINDOWS * microblock.LANE
+    n_cb = -(-span // (2 * microblock.LANE))  # 256-column windows a panel
+    panel = torch.div(cols, span, rounding_mode="floor")
+    stripe = (rows >> 7) * -(-ncols // span) + panel
+    keys, counts = torch.unique(stripe * n_cb + ((cols - panel * span) >> 8),
+                                return_counts=True)
+    mrs = -torch.div(-counts, microblock.SLOT_CAP, rounding_mode="floor")
+    _, inverse = torch.unique_consecutive(
+        torch.div(keys, n_cb, rounding_mode="floor"), return_inverse=True)
+    per_stripe = torch.zeros(int(inverse[-1]) + 1, dtype=torch.int64,
+                             device=mrs.device).index_add_(0, inverse, mrs)
+    group = microblock.ACC_GROUP
+    return int((-torch.div(-per_stripe, group, rounding_mode="floor") * group).sum())
+
+
+def _layout_bytes_per_entry(csr, transpose: bool) -> float:
+    """Device bytes a stored entry of the (256, 1) micro-block layout of
+    ``csr`` (or of its transpose), from :func:`_microrows` (cached on the
+    matrix as the layouts are, and by ``_LARGE_WINDOWS``)."""
+    stats = _cached(csr, "_mb_stat_cache", lambda c, t: {}, False)
+    key = (transpose, _LARGE_WINDOWS)
+    if key not in stats:
+        rows = torch.repeat_interleave(
+            torch.arange(csr.nrows, device=csr.device),
+            torch.diff(csr.rowptrs.long()), output_size=csr.nnz)
+        cols = csr.colinds.long()
+        shape = (csr.nrows, csr.ncols)
+        if transpose:
+            rows, cols, shape = cols, rows, shape[::-1]
+        stats[key] = _microrows(rows, cols, *shape)
+    return stats[key] * _MICROROW_BYTES / max(csr.nnz, 1)
+
+
+def _spmv_route(csr, transpose: bool) -> str:
+    """The f32 SpMV route of ``csr`` (``mult_vec``) or of its transpose
+    (``mult_vec_t``): ``"csr"`` where the micro-block layout would cost
+    more than :data:`_CSR_CROSSOVER` bytes a stored entry, else
+    ``"large"`` past :func:`_needs_large`'s limit, else
+    ``"microblock"``."""
+    if csr.nnz and _layout_bytes_per_entry(csr, transpose) > _CSR_CROSSOVER:
+        return "csr"
+    nrows, ncols = (csr.ncols, csr.nrows) if transpose else (csr.nrows, csr.ncols)
+    return "large" if _needs_large(nrows, ncols) else "microblock"
+
+
+def _csr_form(csr):
+    """``(rowptrs, colinds, values)`` of ``csr`` as ``spmv_csr`` reads
+    them: its own tensors (a copy only of column indices that are not
+    int32 or values that are not f32; values None for a structure-only
+    matrix)."""
+    vals = csr.values
+    return (csr.rowptrs, csr.colinds.to(torch.int32),
+            None if vals is None else vals.to(torch.float32))
+
+
+def _build_csr_t(csr, transpose: bool):
+    """The transpose's CSR tensors on the matrix's device, by the native
+    host transpose (as :func:`_host_form` makes it)."""
+    nrows, _, rp, cis, vals = _host_form(csr, True)
+    dev = csr.device
+    rp = torch.from_numpy(np.ascontiguousarray(rp, np.int64)).to(
+        device=dev, dtype=ptr_dtype(len(cis)))
+    cis = torch.from_numpy(np.ascontiguousarray(cis, np.int32)).to(dev)
+    if vals is not None:
+        vals = torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(dev)
+    trace("layout-build-csr", nnz=len(cis), transpose=transpose,
+          bytes=sum(t.numel() * t.element_size()
+                    for t in (rp, cis, vals) if t is not None))
+    return rp, cis, vals
+
+
+def _cached_csr_t(csr):
+    """The transpose's CSR tensors, cached on the matrix."""
+    return _cached(csr, "_csr_t_cache", _build_csr_t, transpose=True)
 
 
 def _host_form(csr, transpose: bool):
@@ -219,7 +346,8 @@ def release_handle(h, drop_cache: bool = False):
     h._dense = None
     if drop_cache:
         for attr in ("_mb_layout_cache", "_mb_layout_t_cache",
-                     "_mb_large_cache", "_mb_large_t_cache"):
+                     "_mb_large_cache", "_mb_large_t_cache", "_csr_t_cache",
+                     "_mb_stat_cache"):
             setattr(h.csr, attr, None)
 
 
@@ -258,6 +386,12 @@ def _mult(h, v, transpose: bool):
         fn = _torch_k.mult_vec_t if transpose else _torch_k.mult_vec
         return fn(h.torch_handle, v)
     nrows, ncols = (c.ncols, c.nrows) if transpose else (c.nrows, c.ncols)
+    route = _spmv_route(c, transpose)
+    # under a torch.func transform the micro-block route's vmap rule runs
+    # (one SpMM launch a batch), whatever the route
+    if route == "csr" and torch._C._functorch.maybe_current_level() is None:
+        rp, ci, vals = _cached_csr_t(c) if transpose else _csr_form(c)
+        return _spmv_op.spmv_csr(rp, ci, vals, v).to(out_dtype)
     if _needs_large(nrows, ncols):
         a = _cached_large(c, transpose)
     else:
@@ -266,14 +400,16 @@ def _mult(h, v, transpose: bool):
 
 
 def mult_vec(h, v):
-    """SpMV ``A @ v`` on the micro-block kernel (chunks and panels past
+    """SpMV ``A @ v`` on the route :func:`_spmv_route` picks: the
+    CSR-form kernel, or the micro-block kernel (chunks and panels past
     :data:`_LARGE_WINDOWS`)."""
     return _mult(h, v, transpose=False)
 
 
 def mult_vec_t(h, v):
-    """Transpose SpMV ``A^T @ v`` on the micro-block kernel, over a cached
-    layout of the transpose (built by a host transpose)."""
+    """Transpose SpMV ``A^T @ v`` on the route :func:`_spmv_route` picks
+    for the transpose, over its cached CSR tensors or layout (built by a
+    host transpose)."""
     return _mult(h, v, transpose=True)
 
 

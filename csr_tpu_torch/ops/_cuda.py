@@ -43,6 +43,9 @@ ENTRIES = {
     # x, x_stride, y, y_stride, grid, shift, nrows, stream
     "spmv_bucket": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _vp, _i64, _vp,
                     _i64, _i64, _i32, _i32, _vp],
+    # rowptrs, ptr64, colinds, values (or NULL), x, y, nrows, nnz, zeroed,
+    # stream
+    "spmv_csr": [_vp, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp],
 }
 
 #: loaded libraries by kernel name
@@ -120,6 +123,17 @@ def spmv_bucket(vals, meta, rbcb, held, groups, x, y, grid: int,
             held.data_ptr(), groups.data_ptr(), n_layers, n_buckets, m,
             x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), grid,
             shift, nrows, torch.cuda.current_stream(y.device).cuda_stream)
+
+
+def spmv_csr(rowptrs, colinds, values, x, y, zeroed: bool) -> None:
+    """Launch the CSR-form SpMV kernel, ``y += A @ x`` read from the
+    matrix's own tensors (``values`` None: every value 1), on the current
+    stream; with ``zeroed`` the caller has zeroed ``y``.  The caller has
+    checked the tensors."""
+    _launch("spmv_csr", rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64),
+            colinds.data_ptr(), None if values is None else values.data_ptr(),
+            x.data_ptr(), y.data_ptr(), rowptrs.shape[0] - 1, colinds.shape[0],
+            int(zeroed), torch.cuda.current_stream(y.device).cuda_stream)
 
 
 def spmv_bucket_occupancy() -> tuple:

@@ -23,6 +23,12 @@ Micro-block SpMV (counterpart of :func:`csr_tpu.ops.spmv.spmv`).
   panels that each pack into a layout, and :func:`spmv_large` runs
   :func:`spmv` once a panel: the counterpart of the JAX package's
   ``spmv_large``, for matrices past a budget of windows.
+* :func:`spmv_csr` is the wrapper of the CSR-form kernel
+  ``csrc/spmv_csr.cu``, a second body for the same Pallas kernel that
+  reads the matrix's own CSR tensors (no packing), for matrices whose
+  micro-block layout is mostly padding.  :func:`spmv_csr_reference` is
+  its plain PyTorch version, split as the kernel splits
+  (:func:`csr_shares`), and :data:`csr_launches` its launch count.
 """
 
 from __future__ import annotations
@@ -41,6 +47,11 @@ from .microblock import (ACC_GROUP, LANE, BucketStack, MicroBlockLayout,
 launches = 0
 #: number of launches of the bucket-selecting CUDA kernel
 bucket_launches = 0
+#: number of launches of the CSR-form CUDA kernel
+csr_launches = 0
+#: merge items (row ends and stored entries) in a block's share of the
+#: CSR-form kernel: its ``kThreads * kItems`` (``csrc/spmv_csr.cu``)
+CSR_TILE = 2048
 #: blocks an SM of the bucket kernel's grid, and warps a block: the
 #: occupancy its one build was chosen for (PERF.md, PR 5), which
 #: chip_smoke's first phase asserts
@@ -289,6 +300,123 @@ def spmv_large(chunks, ncols: int, x: torch.Tensor) -> torch.Tensor:
             c0 = cb_off * LANE
             spmv(layout, x[c0 : c0 + layout.ncols], out=y[r0 : r0 + cn])
         r0 += cn
+    return y
+
+
+def csr_shares(rowptrs: torch.Tensor, nnz: int, tile: int = CSR_TILE):
+    """The CSR-form kernel's split: the merge of the row ends with the
+    entry indices (merge path, Merrill & Garland) cut into shares of
+    ``tile`` items, one a block.  Returns int64 ``(rows, entries)`` at the
+    ``ceil((nrows + nnz) / tile) + 1`` share edges: share ``s`` holds the
+    row ends of rows ``rows[s] .. rows[s + 1] - 1`` and the entries
+    ``entries[s] .. entries[s + 1] - 1``.  At diagonal ``d`` the rows
+    consumed are those with ``rowptrs[i + 1] + i + 1 <= d`` (the kernel's
+    ``merge_search``)."""
+    nrows = rowptrs.shape[0] - 1
+    dev = rowptrs.device
+    total = nrows + nnz
+    d = torch.arange(0, total + tile, tile, device=dev).clamp_max(total)
+    ends = rowptrs[1:].to(torch.int64) + torch.arange(1, nrows + 1, device=dev)
+    rows = torch.searchsorted(ends, d, right=True)
+    return rows, d - rows
+
+
+def spmv_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
+                       values: torch.Tensor | None, x: torch.Tensor,
+                       tile: int = CSR_TILE) -> torch.Tensor:
+    """``A @ x`` in plain PyTorch, split as the CSR-form kernel splits
+    it: the products ``values * x[colinds]`` (every value 1 when
+    ``values`` is None); each share of :func:`csr_shares`'s sums its
+    rows' products (a row inside one share whole, a row cut by a share's
+    edge in one part a share); then the parts are added into their rows,
+    which is the fix-up the kernel makes with atomics.  Returns f32 on
+    the tensors' device."""
+    dev = colinds.device
+    nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
+    y = torch.zeros(nrows, dtype=torch.float32, device=dev)
+    if nnz == 0:
+        return y
+    x = x.to(device=dev, dtype=torch.float32)
+    p = x[colinds.long()]
+    if values is not None:
+        p = values.to(torch.float32) * p
+    _, k = csr_shares(rowptrs, nnz, tile)
+    idx = torch.arange(nnz, device=dev)
+    share = torch.searchsorted(k[1:], idx, right=True)
+    row = torch.repeat_interleave(torch.arange(nrows, device=dev),
+                                  torch.diff(rowptrs.long()), output_size=nnz)
+    # a part is a run of entries of one row in one share
+    new = torch.ones(nnz, dtype=torch.bool, device=dev)
+    new[1:] = (row[1:] != row[:-1]) | (share[1:] != share[:-1])
+    part = torch.cumsum(new, 0) - 1
+    sums = torch.zeros(int(part[-1]) + 1, dtype=torch.float32, device=dev)
+    sums.index_add_(0, part, p)
+    return y.index_add_(0, row[new], sums)
+
+
+def _check_csr_operands(rowptrs, colinds, values, x, out) -> None:
+    dev = colinds.device
+    nrows = rowptrs.shape[0] - 1 if rowptrs.dim() == 1 else -1
+    if rowptrs.dtype not in (torch.int32, torch.int64) or nrows < 0:
+        raise ValueError(f"rowptrs: expected 1-D int32 or int64, got "
+                         f"{rowptrs.dtype} {tuple(rowptrs.shape)}")
+    if colinds.dtype != torch.int32 or colinds.dim() != 1:
+        raise ValueError(f"colinds: expected 1-D int32, got {colinds.dtype} "
+                         f"{tuple(colinds.shape)}")
+    if values is not None and (values.dtype != torch.float32
+                               or tuple(values.shape) != tuple(colinds.shape)):
+        raise ValueError(f"values: expected float32 {tuple(colinds.shape)}, "
+                         f"got {values.dtype} {tuple(values.shape)}")
+    if x.dim() != 1:
+        raise ValueError(f"x: expected 1-D, got {tuple(x.shape)}")
+    if out is not None and (out.shape != (nrows,) or out.dtype != torch.float32):
+        raise ValueError(f"out: expected float32 ({nrows},), got {out.dtype} "
+                         f"{tuple(out.shape)}")
+    for name, t in (("rowptrs", rowptrs), ("values", values), ("x", x),
+                    ("out", out)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} on {t.device}, colinds on {dev}")
+    for name, t in (("rowptrs", rowptrs), ("colinds", colinds),
+                    ("values", values), ("out", out)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
+             values: torch.Tensor | None, x: torch.Tensor,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """``A @ x`` for a matrix in CSR form, read from its own tensors:
+    ``rowptrs`` int32 or int64 (``rowptrs[0] == 0``, the last the entry
+    count), ``colinds`` int32, ``values`` f32 or None (every value 1),
+    all contiguous on one device with ``x``; returns f32 of length
+    ``nrows``.  With ``out`` (f32, contiguous, ``nrows`` long) the product
+    is added into it and it is returned.
+
+    On CUDA tensors one launch of ``csrc/spmv_csr.cu`` whatever the size,
+    counted in :data:`csr_launches`; a build or launch failure raises.  On
+    CPU tensors :func:`spmv_csr_reference` runs."""
+    global csr_launches
+    _check_csr_operands(rowptrs, colinds, values, x, out)
+    dev = colinds.device
+    if dev.type == "cpu":
+        y = spmv_csr_reference(rowptrs, colinds, values, x)
+        return y if out is None else out.add_(y)
+    if dev.type != "cuda":
+        raise ValueError(f"spmv_csr runs on CPU or CUDA tensors, not {dev}")
+    x = x.to(torch.float32).contiguous()
+    ptrs = [t.data_ptr() for t in (rowptrs, colinds, values, x, out)
+            if t is not None]
+    if any(p % 4 for p in ptrs):
+        raise ValueError("rowptrs, colinds, values, x and out must be 4 B aligned")
+    nrows = rowptrs.shape[0] - 1
+    y = torch.zeros(nrows, dtype=torch.float32, device=dev) if out is None else out
+    if colinds.shape[0] == 0:
+        return y
+    from . import _cuda
+
+    with torch.cuda.device(dev):
+        _cuda.spmv_csr(rowptrs, colinds, values, x, y, zeroed=out is None)
+    csr_launches += 1
     return y
 
 

@@ -86,7 +86,8 @@ def test_slice_matches_reference(kernel, structure_only, reference_results):
         assert_spmv_close(yt.numpy(), ryt, at, xt)
 
 
-def test_cuda_kernel_caches_layouts():
+def test_cuda_kernel_caches_layouts(monkeypatch):
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))  # the micro-block route
     c = _port(_matrix())
     events = []
     kernels._listeners.append(lambda e, f: events.append(e))

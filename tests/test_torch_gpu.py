@@ -7,9 +7,11 @@ where only PyTorch is installed:
 
 import numpy as np
 import pytest
+import scipy.sparse as sps
 import torch
 
 from csr_tpu_torch import CSR
+from csr_tpu_torch.harness import spmv_share
 from csr_tpu_torch.kernels import use_kernel
 from csr_tpu_torch.ops import microblock as mb, spmm, spmv
 from csr_tpu_torch.parallel import dist, mb_dist, mb_ring, ring
@@ -199,12 +201,13 @@ def test_slice_on_card(cuda_device):
     c = CSR(260, 390, a.nnz, a.indptr, a.indices, a.data, device=cuda_device)
     x = np.random.default_rng(13).uniform(-1, 1, 390).astype(np.float32)
     xt = np.random.default_rng(14).uniform(-1, 1, 260).astype(np.float32)
-    before = spmv.launches
+    before = spmv.launches + spmv.csr_launches
     with use_kernel("cuda"):
         y = c.mult_vec(torch.from_numpy(x).to(cuda_device))
         yt = c.mult_vec_t(torch.from_numpy(xt).to(cuda_device))
         y64 = c.mult_vec(torch.from_numpy(x).double().to(cuda_device))
-    assert spmv.launches == before + 2  # f64 routes to the torch backend
+    # one launch of the routed kernel each; f64 routes to the torch backend
+    assert spmv.launches + spmv.csr_launches == before + 2
     assert y.device.type == yt.device.type == "cuda" and y64.dtype == torch.float64
     a64 = a.astype(np.float64)
     assert_spmv_close(y.cpu().numpy(), a64 @ x, c, x)
@@ -431,6 +434,7 @@ def test_spmv_large_on_card(cuda_device, monkeypatch):
     from csr_tpu_torch.kernels import cuda as cuda_k
 
     monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 2)
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))  # the micro-block route
     a = random_matrix(512, 640, 0.03, seed=72)
     c = CSR.from_scipy(a, device=cuda_device)
     rng = np.random.default_rng(73)
@@ -532,12 +536,16 @@ def test_graph_capture_of_mult_vec_on_card(cuda_device):
     def step(v):
         return normalized(c.mult_vec(v))
 
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    kernel = {"csr": "spmv_csr"}.get(cuda_k._spmv_route(c, False), "spmv_microblock")
     with use_kernel("cuda"):
-        before = spmv.launches
+        before = profiling.launch_counts()[kernel]
         _, y, captured = profiling.timed_graph(step, x0, iters=5, reps=3)
-        assert spmv.launches == before + 1 + 5  # the warm-up step, the capture
-        assert captured == {"spmv_microblock": 5, "spmm_microblock": 0,
-                            "spmv_bucket": 0}
+        # the warm-up step, the capture
+        assert profiling.launch_counts()[kernel] == before + 1 + 5
+        assert captured == {"spmv_microblock": 0, "spmm_microblock": 0,
+                            "spmv_bucket": 0, "spmv_csr": 0, kernel: 5}
         v = x0
         for _ in range(4):
             v = step(v)
@@ -566,3 +574,125 @@ def test_cuda_backend_refuses_grad_on_card(cuda_device):
     (g,) = torch.autograd.grad(y.sum(), x)
     np.testing.assert_allclose(g.cpu().numpy(), np.asarray(a.sum(0)).ravel(),
                                rtol=1e-5, atol=1e-5)
+
+
+def _csr_views(a, offset, ptr_dtype, device, structure_only=False):
+    """The CSR arrays of scipy ``a`` on the card, ``colinds`` ``offset[0]``
+    and ``values`` ``offset[1]`` floats past a 16 B boundary (the same
+    offsets take the kernel's 16 B path, different ones its scalar path),
+    row pointers of ``ptr_dtype``."""
+    nnz = a.nnz
+    ci = torch.zeros(nnz + 8, dtype=torch.int32, device=device)[offset[0]:][:nnz]
+    ci.copy_(torch.from_numpy(a.indices.astype(np.int32)))
+    v = torch.zeros(nnz + 8, device=device)[offset[1]:][:nnz]
+    v.copy_(torch.from_numpy(a.data.astype(np.float32)))
+    rp = torch.from_numpy(a.indptr.astype(np.int64)).to(device, ptr_dtype)
+    return rp, ci, None if structure_only else v
+
+
+def _long_row_matrix(seed):
+    """600 x 9000 with one full row (4.4 shares of merge items), most rows
+    empty, and a block of 30 denser rows."""
+    rng = np.random.default_rng(seed)
+    m = sps.lil_matrix((600, 9000), dtype=np.float32)
+    m[17, :] = rng.standard_normal(9000)
+    m[18, 5] = 2.0
+    m[400:430, :300] = rng.standard_normal((30, 300))
+    return m.tocsr()
+
+
+@pytest.mark.parametrize("offset,ptr_dtype,structure_only", [
+    ((0, 0), torch.int32, False), ((1, 1), torch.int64, False),
+    ((3, 3), torch.int32, False), ((1, 2), torch.int64, False),
+    ((2, 0), torch.int32, True)])
+@pytest.mark.parametrize("case", ["random", "long row"])
+def test_csr_kernel_matches_reference_on_card(case, offset, ptr_dtype,
+                                              structure_only, cuda_device):
+    """The CSR-form kernel against spmv_csr_reference and scipy, on its 16 B
+    and scalar paths, with int32 and int64 row pointers and structure-only;
+    ``out=`` adds into what it holds."""
+    a = (random_matrix(3000, 5000, 0.004, seed=80, big_group=False)
+         if case == "random" else _long_row_matrix(81))
+    if structure_only:
+        a = sps.csr_matrix((np.ones(a.nnz, np.float32), a.indices, a.indptr),
+                           shape=a.shape)
+    rp, ci, v = _csr_views(a, offset, ptr_dtype, cuda_device, structure_only)
+    x = np.random.default_rng(82).uniform(-1, 1, a.shape[1]).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    before = spmv.csr_launches
+    y = spmv.spmv_csr(rp, ci, v, xd)
+    out = torch.full((a.shape[0],), 0.5, device=cuda_device)
+    assert spmv.spmv_csr(rp, ci, v, xd, out=out) is out
+    y_ref = spmv.spmv_csr_reference(rp, ci, v, xd)
+    torch.cuda.synchronize()
+    assert spmv.csr_launches == before + 2
+    assert_spmv_close(y.cpu().numpy(), y_ref.cpu().numpy(), Scipy(a), x)
+    assert_spmv_close(y.cpu().numpy(), a.astype(np.float64) @ x, Scipy(a), x)
+    assert_spmv_close((out - 0.5).cpu().numpy(), a.astype(np.float64) @ x,
+                      Scipy(a), x)
+
+
+def test_csr_kernel_many_shares_a_block_on_card(cuda_device):
+    """A matrix of more than two waves of resident blocks' shares
+    (5,000,000 rows of 0 to 4 entries: about 7,300 shares of 2048 merge
+    items), so each block takes several shares in a row, in one launch;
+    empty rows give 0."""
+    rng = np.random.default_rng(83)
+    n = 5_000_000
+    lengths = rng.integers(0, 5, n)
+    rp = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=rp[1:])
+    cols = rng.integers(0, 1 << 20, int(rp[-1])).astype(np.int32)
+    a = sps.csr_matrix((rng.standard_normal(len(cols)).astype(np.float32),
+                        cols, rp), shape=(n, 1 << 20))
+    rpd, ci, v = _csr_views(a, (0, 0), torch.int32, cuda_device)
+    x = rng.uniform(-1, 1, 1 << 20).astype(np.float32)
+    xd = torch.from_numpy(x).to(cuda_device)
+    y = spmv.spmv_csr(rpd, ci, v, xd)
+    y_ref = spmv.spmv_csr_reference(rpd, ci, v, xd)
+    torch.cuda.synchronize()
+    assert not y[torch.from_numpy(lengths == 0).to(cuda_device)].any()
+    # assert_spmv_close's bound, on the sparse matrix (it densifies)
+    spmv_share(y, y_ref.cpu().numpy(), a, x)
+    spmv_share(y, a.astype(np.float64) @ x, a, x)
+
+
+def test_csr_kernel_inf_reaches_only_its_rows_on_card(cuda_device):
+    a = _long_row_matrix(84)
+    x = np.random.default_rng(85).uniform(-1, 1, 9000).astype(np.float32)
+    x[5] = np.inf
+    rp, ci, v = _csr_views(a, (1, 1), torch.int32, cuda_device)
+    y = spmv.spmv_csr(rp, ci, v, torch.from_numpy(x).to(cuda_device)).cpu().numpy()
+    uses = np.flatnonzero(a[:, [5]].toarray()[:, 0] != 0)
+    assert np.array_equal(np.flatnonzero(~np.isfinite(y)), uses)
+
+
+def test_csr_routed_mult_vec_is_one_launch_on_card(cuda_device):
+    """A hypersparse matrix's mult_vec and mult_vec_t take the CSR-form
+    kernel, one launch each, and build no micro-block layout; the
+    transpose's CSR tensors are cached; both match scipy."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    rng = np.random.default_rng(86)
+    a = sps.random(4096, 1 << 20, 12 / (1 << 20), format="csr", dtype=np.float32,
+                   random_state=rng)
+    c = CSR.from_scipy(a, device=cuda_device)
+    assert cuda_k._spmv_route(c, False) == cuda_k._spmv_route(c, True) == "csr"
+    x = rng.uniform(-1, 1, 1 << 20).astype(np.float32)
+    xt = rng.uniform(-1, 1, 4096).astype(np.float32)
+    with use_kernel("cuda"):
+        before = (spmv.csr_launches, spmv.launches)
+        y = c.mult_vec(torch.from_numpy(x).to(cuda_device))
+        assert (spmv.csr_launches, spmv.launches) == (before[0] + 1, before[1])
+        yt = c.mult_vec_t(torch.from_numpy(xt).to(cuda_device))
+        assert (spmv.csr_launches, spmv.launches) == (before[0] + 2, before[1])
+        c.mult_vec_t(torch.from_numpy(xt).to(cuda_device))
+    torch.cuda.synchronize()
+    for attr in ("_mb_layout_cache", "_mb_layout_t_cache", "_mb_large_cache",
+                 "_mb_large_t_cache"):
+        assert getattr(c, attr, None) is None, attr
+    assert c._csr_t_cache[3][0].device.type == "cuda"
+    # assert_spmv_close's bound, on the sparse matrices (it densifies)
+    spmv_share(y, a.astype(np.float64) @ x, a, x)
+    at = a.T.tocsr()
+    spmv_share(yt, at.astype(np.float64) @ xt, at, xt)

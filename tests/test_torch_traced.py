@@ -145,6 +145,7 @@ def test_vmap_on_cuda_backend_is_one_spmm(mat, monkeypatch):
     ``mult_dense`` does; outside vmap a product runs the SpMV wrapper
     once."""
     from csr_tpu_torch import kernels
+    from csr_tpu_torch.kernels import cuda as cuda_k
 
     _, csr, dense = mat
     calls = []
@@ -160,6 +161,7 @@ def test_vmap_on_cuda_backend_is_one_spmm(mat, monkeypatch):
 
     monkeypatch.setattr(spmm_op, "spmm", spmm)
     monkeypatch.setattr(spmv_op, "spmv", spmv)
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))  # the micro-block route
     X = torch.from_numpy(np.random.default_rng(6).standard_normal((8, 40))
                          .astype(np.float32))
     events = []

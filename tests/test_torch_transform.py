@@ -137,11 +137,12 @@ def _events():
 
 @pytest.mark.parametrize("op", ["center", "unit", "sort_rows", "fill_values",
                                 "values_setter"])
-def test_inplace_ops_rebuild_cuda_layouts(op):
+def test_inplace_ops_rebuild_cuda_layouts(op, monkeypatch):
     """After each in-place method a ``cuda`` product builds fresh layouts
     (both directions) and agrees with scipy on the new values: the layout
     cache and the host copies never outlive the tensors they were made
     from."""
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))  # the micro-block route
     rng = np.random.default_rng(61)
     rows = rng.integers(0, 300, 3000)
     cols = rng.integers(0, 200, 3000)  # unsorted rows, repeats
