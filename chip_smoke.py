@@ -5,7 +5,7 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
 It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
 ``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
-runs twenty-one phases; any failure raises and the script exits nonzero.  It
+runs twenty-two phases; any failure raises and the script exits nonzero.  It
 needs a CUDA device and never falls back to the CPU: every matrix is
 built with no device named and must land on the card.
 
@@ -42,8 +42,10 @@ built with no device named and must land on the card.
 11. The densify threshold: at 8192^2 with B 50, 128, 256 and 8192 wide, the
     SpMM kernel against the densified f32 ``torch.matmul`` (TF32 off),
     alone and as whole ``CSR.mult_dense`` calls, at densities 1e-3 ..
-    3e-1; the route the port picks must cost at most 1.5 times the faster
-    one at every point.
+    3e-1 (a whole call off the dense route takes the port's sparse route:
+    the CSR-form SpMM where the layout would be mostly padding, at the
+    lowest densities); the route the port picks must cost at most 1.5
+    times the faster one at every point.
 
 12. The bucket-selecting SpMV kernel against its plain version
     (``spmv_bucket_reference``) on the card: small seeded stacks of two
@@ -140,6 +142,34 @@ built with no device named and must land on the card.
     it runs, ``torch.sparse_csr_tensor(...) @ x`` and the plain version,
     beside the CSR bound; bytes a stored entry of both forms; the route's
     pick within 1.10 times the faster kernel.
+22. The CSR-form SpMM kernel (``csrc/spmm_csr.cu``) and its route: the
+    kernel against ``spmm_csr_reference`` and scipy on small seeded
+    matrices (empty rows and an empty matrix, a row of 4.9 shares of
+    1,024 merge items, a block of dense rows; n = 1, 3, 50, 128, 257;
+    int32 and int64 row pointers, colinds and values off a 16 B boundary,
+    structure-only, B off a 16 B boundary or with padded rows; an inf in
+    B that some rows use); then, at n = 50 and 256, at the realistic case
+    (n = 50 only), 4.3M x 4,096, phase 20's hypersparse matrix and its
+    transpose, phase 21's sweep, the flagship and the MovieLens-25M shape:
+    the first ``mult_dense`` of a fresh CSR (route, host seconds), its
+    launches counted from 0 and held to its route (one ``spmm_csr``
+    launch and no layout at the realistic case and 4.3M x 4,096, n = 50),
+    against scipy on a 64-row sample; the kernel against the plain
+    version on the card; device time of the CSR-form kernel, the
+    micro-block SpMM (one layout, or ``spmm_large``'s chunks and panels),
+    ``torch.sparse_csr_tensor(...) @ B`` and the plain version, beside the
+    bound (8 B an entry, the row pointers, B's gathered rows and C once);
+    the route's pick within 1.10 times the faster kernel; the CSR-form and
+    micro-block SpMM timed in turns at 15 131,072-row matrices whose
+    layouts cost 8.3-24.1 B a stored entry (8-64 entries a row over
+    4,096 columns, 64-128 over 2^16), n = 50 and 256, and at phase 9's
+    8192^2 SpGEMM operand, n = 50 to 8,192, with their time ratios by
+    layout bytes beside SpMM's crossover; ``vmap`` of ``mult_vec`` at the hypersparse
+    matrix, k = 50 (one ``spmm_csr`` launch, no layout); the route
+    statistic's peak device memory over the first ``mult_vec`` at 2^27
+    entries; and ``mult_vec``, ``mult_vec_t`` and ``mult_dense`` on every
+    route after ``values.mul_(2)`` against scipy's products of the new
+    values.
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
@@ -154,6 +184,7 @@ The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import re
 import subprocess
@@ -255,20 +286,24 @@ def per_call(fn, iters=50):
     return start.elapsed_time(end) / iters, host
 
 
-def device_ms(fn, calls=10, tries=5):
+def device_ms(fn, calls=10, tries=8, by_kernel=False):
     """Milliseconds of device time per call of ``fn``: the time of every
     kernel and copy ``torch.profiler`` saw on the card over ``calls`` calls,
     so the host's pace is left out.  The same clock for a hand-written
-    kernel, its plain version and a library call.
+    kernel, its plain version and a library call.  With ``by_kernel``,
+    also each kernel's and copy's milliseconds a call, by name.
 
     The profiler can lose records (late in a long process, mostly those of
     a window's first milliseconds), so the window opens with 20 ms of calls
     that are not counted: only records that start after a mark set behind
-    them are.  Every call launches the same kernels, so a window counts
-    only if it kept a whole number of records a call of every kernel, and
-    if their time is no more than the counted calls took on the host's
-    clock.  A window that fails either test is taken again, ``tries`` times
-    in all; then this raises.  Nothing is extrapolated from a window with
+    them are.  Each of those calls is waited for: otherwise the host would
+    queue as many as it can launch in 20 ms, seconds of device work for a
+    product of 10 ms.  Every call launches the same kernels, so a window
+    counts only if it kept a whole number of records a call of every
+    kernel that the uncounted calls ran (none lost whole), and if their
+    time is no more than the counted calls took on the host's clock.  A
+    window that fails either test is taken again, ``tries`` times in all;
+    then this raises.  Nothing is extrapolated from a window with
     records missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -282,7 +317,7 @@ def device_ms(fn, calls=10, tries=5):
             t0 = time.perf_counter()
             while time.perf_counter() - t0 < 0.02:
                 fn()
-            torch.cuda.synchronize()
+                torch.cuda.synchronize()
             with record_function(mark):
                 t0 = time.perf_counter()
                 for _ in range(calls):
@@ -293,20 +328,26 @@ def device_ms(fn, calls=10, tries=5):
         start = min(e.time_range.start for e in events if e.name == mark)
         # device events only: a CPU op's entry repeats its kernels' time,
         # and so does the mark's own range on the device's timeline
-        times = {}
+        times, ran = {}, set()
         for e in events:
-            if (e.device_type == DeviceType.CUDA and e.name != mark
-                    and e.time_range.start >= start):
-                times.setdefault(e.name, []).append(e.time_range.elapsed_us())
+            if e.device_type == DeviceType.CUDA and e.name != mark:
+                if e.time_range.start >= start:
+                    times.setdefault(e.name, []).append(e.time_range.elapsed_us())
+                else:
+                    ran.add(e.name)
         total_us = sum(map(sum, times.values()))
-        partial = [f"{len(us)} of {name[:40]}" for name, us in times.items()
-                   if len(us) % calls]
+        partial = ([f"{len(us)} of {name[:40]}" for name, us in times.items()
+                    if len(us) % calls]
+                   + [f"0 of {name[:40]}" for name in ran - set(times)])
         if not times:
             why.append("no device record")
         elif partial:
             why.append(f"records kept over {calls} calls: {', '.join(partial)}")
         elif total_us > 1.02 * wall_us:
             why.append(f"{total_us:.0f} us on the device in {wall_us:.0f} us")
+        elif by_kernel:
+            return total_us / calls / 1e3, {name: sum(us) / calls / 1e3
+                                            for name, us in times.items()}
         else:
             return total_us / calls / 1e3
         print(f"[device_ms] window taken again ({why[-1]})")
@@ -798,8 +839,10 @@ def phase_densify_threshold(card):
     ``multiply``).  Timed alone (layout and dense form prebuilt) and as
     whole ``CSR.mult_dense`` calls on each route (the dense route
     densifies anew in every call, as a released handle drops its dense
-    form).  At every point the route that ``_dense_affordable`` picks must
-    cost at most 1.5 times the faster one."""
+    form; off the dense route the call takes the port's sparse route,
+    the CSR-form SpMM at the lowest densities).  At every point the route
+    that ``_dense_affordable`` picks must cost at most 1.5 times the
+    faster one."""
     from csr_tpu_torch import CSR
     from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
     from csr_tpu_torch.ops import spmm as spmm_op
@@ -1607,11 +1650,13 @@ def phase_item_item(ml, card, block=1024):
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def power_law_rows(nrows, ncols, per_row, seed):
     """Host CSR arrays of an ``nrows x ncols`` f32 matrix with ``per_row``
     entries a row, columns drawn with power-law popularity (exponent 0.6
     over a random permutation of the ids, as movielens_shape draws items;
-    repeats kept), values standard normal, from a seed."""
+    repeats kept), values standard normal, from a seed.  Cached: the
+    phases that use one matrix share its arrays, which none changes."""
     rng = np.random.default_rng(seed)
     nnz = nrows * per_row
     rowptr = np.arange(nrows + 1, dtype=np.int64) * per_row
@@ -1788,7 +1833,7 @@ def phase_vmap(tag, csr, a, k, seed, card):
         torch.cuda.synchronize()
         counts = launch_counts()
         assert counts == {"spmv_microblock": 0, "spmm_microblock": 1,
-                          "spmv_bucket": 0, "spmv_csr": 0}, counts
+                          "spmv_bucket": 0, "spmv_csr": 0, "spmm_csr": 0}, counts
         Y_loop = loop()
         ms_batch, ms_loop = device_ms(batch), device_ms(loop)
     assert Y.shape == (k, csr.nrows), Y.shape
@@ -1922,7 +1967,7 @@ def phase_harness(fl_csr, fl_a, ml_csr, ml_a, card):
     assert 0 < line["vs_baseline"] <= 1.05, line
     assert set(r.shares) == {"eager_vs_scipy", "graph_vs_eager"}, r.shares
     assert r.launches == {"spmv_microblock": 300, "spmm_microblock": 0,
-                          "spmv_bucket": 0, "spmv_csr": 0}, r.launches
+                          "spmv_bucket": 0, "spmv_csr": 0, "spmm_csr": 0}, r.launches
     assert r.replays == 3, r.replays
     out["bench"] = dict(line, ms=r.seconds * 1e3, eager_ms=r.eager_seconds * 1e3,
                         prep_s=r.prep_seconds, **r.shares)
@@ -2121,13 +2166,15 @@ CSR_SWEEP = ((12, 4096), (12, 1 << 16), (12, 1 << 20), (12, 1 << 22),
              (64, 1 << 20), (327, 1 << 20))
 
 
+@functools.lru_cache(maxsize=None)
 def realistic_hypersparse(nrows=8_388_608, ncols=1 << 20, seed=21):
     """Host CSR arrays of the realistic hypersparse rating matrix: users x
     items as in the Amazon product-review sets, each row's length
     ``min(zipf(2.4), 4096)`` (about 18.5M entries, 2.2 a row), item
     columns drawn by power_law_rows' power law (exponent 0.6 over a
     random permutation of the ids; repeats kept), values standard
-    normal, all from ``np.random.default_rng(seed)``."""
+    normal, all from ``np.random.default_rng(seed)``.  Cached, as
+    power_law_rows is."""
     rng = np.random.default_rng(seed)
     rowptr = np.zeros(nrows + 1, np.int64)
     np.cumsum(np.minimum(rng.zipf(2.4, nrows), 4096), out=rowptr[1:])
@@ -2374,10 +2421,505 @@ def csr_summary(rows, corner_err):
     return out
 
 
+CSR_SPMM_KERNEL = {
+    "name": "spmm_csr",
+    "route": "cuda",
+    "source": "csr_tpu_torch/csrc/spmm_csr.cu",
+    "replaces": "csr_tpu/ops/spmm.py:66",
+}
+#: phase 22's widths of B against the plain version
+SPMM_CSR_WIDTHS = (1, 3, 50, 128, 257)
+
+
+def b_view(ncols, n, rng, offset=0, pad=0):
+    """A seeded f32 B (``ncols`` x ``n``) on the card and on the host: on
+    the card a view ``offset`` floats past a 16 B boundary whose rows lie
+    ``n + pad`` floats apart."""
+    b = rng.standard_normal((ncols, n)).astype(np.float32)
+    buf = torch.zeros(ncols * (n + pad) + offset, device="cuda")
+    bd = buf[offset:].view(ncols, n + pad)[:, :n]
+    bd.copy_(torch.from_numpy(b))
+    return b, bd
+
+
+def spmm_share_card(c, ref, rtol=SPMM_RTOL, atol=SPMM_ATOL) -> float:
+    """:func:`spmm_share` on the card, for results too large to copy to
+    the host: the largest |c - ref| as a share of tests/test_mult_dense.py's
+    bound; raises if it exceeds the bound or c is not finite."""
+    assert c.shape == ref.shape, (tuple(c.shape), tuple(ref.shape))
+    if c.numel() == 0:
+        return 0.0
+    assert bool(torch.isfinite(c).all()), "non-finite SpMM output"
+    tol = rtol * ref.abs() + atol * max(1.0, float(ref.abs().max()))
+    share = float(((c - ref).abs() / tol).max())
+    assert share <= 1.0, f"SpMM outside the bound: share {share:.3g}"
+    return share
+
+
+def phase_spmm_csr_kernel_vs_plain():
+    """[22] The CSR-form SpMM kernel against spmm_csr_reference (and
+    scipy) on small seeded matrices on the card: empty rows and an empty
+    matrix, a row of 4.9 shares, a block of 30 dense rows; B of n = 1, 3,
+    50, 128 and 257 columns; int32 and int64 rowptrs, colinds and values
+    off a 16 B boundary, structure-only, and a B off a 16 B boundary or
+    with padded rows (the 16 B path and the scalar one); an inf in B that
+    some rows use.  Returns the largest difference."""
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    rng = np.random.default_rng(2200)
+    lil = sps.lil_matrix((700, 5000), dtype=np.float32)
+    lil[17, :] = rng.standard_normal(5000)          # 4.9 shares of one row
+    lil[18, 5] = 2.0
+    lil[400:430, :300] = rng.standard_normal((30, 300))
+    mats = [("random", sps.random(3000, 5000, 0.004, format="csr",
+                                  random_state=rng, dtype=np.float32)),
+            ("long row, empty rows", lil.tocsr()),
+            ("empty", sps.csr_matrix((50, 40), dtype=np.float32))]
+    worst = 0.0
+    for name, a in mats:
+        ones = sps.csr_matrix((np.ones(a.nnz, np.float32), a.indices, a.indptr),
+                              shape=a.shape)
+        for n in SPMM_CSR_WIDTHS:
+            # (colinds +, values +, rowptrs, structure-only, B +, B's row pad)
+            for oc, ov, pd, so, bo, bp in ((0, 0, torch.int32, False, 0, 0),
+                                           (1, 1, torch.int64, False, 0, 4),
+                                           (2, 0, torch.int32, True, 1, 0),
+                                           (3, 3, torch.int64, False, 3, 3)):
+                rp, ci, v = csr_views(a, oc, ov, pd, so)
+                b, bd = b_view(a.shape[1], n, rng, bo, bp)
+                c = spmm_op.spmm_csr(rp, ci, v, bd)
+                c_ref = spmm_op.spmm_csr_reference(rp, ci, v, bd)
+                torch.cuda.synchronize()
+                err = float((c - c_ref).abs().max()) if c.numel() else 0.0
+                worst = max(worst, err)
+                share = spmm_share(c, c_ref.cpu().numpy())
+                share_sp = spmm_share(c, (ones if so else a).astype(np.float64) @ b)
+                vec = n % 4 == 0 and bd.stride(0) % 4 == 0 and bd.data_ptr() % 16 == 0
+                print(f"[22] {name} ({a.shape[0]}x{a.shape[1]}, nnz {a.nnz}), n {n}, "
+                      f"colinds +{oc}, values +{ov}, rowptrs {pd}, structure-only "
+                      f"{so}, B +{bo} rows {n + bp} apart ({'16 B' if vec else 'scalar'} "
+                      f"path): kernel vs plain max abs err {err:.3g}, share "
+                      f"{share:.3g} (vs scipy {share_sp:.3g})")
+    # an inf in B, in the row that column 5 gathers: only the rows that use
+    # column 5 turn non-finite, and only in the inf's column
+    a = mats[1][1]
+    uses = set(np.flatnonzero(a[:, [5]].toarray()[:, 0] != 0).tolist())
+    for n in (50, 128):
+        b, bd = b_view(a.shape[1], n, rng)
+        bd[5, 1] = float("inf")
+        rp, ci, v = csr_views(a, 0, 0, torch.int32)
+        c = spmm_op.spmm_csr(rp, ci, v, bd).cpu().numpy()
+        bad_r, bad_c = np.nonzero(~np.isfinite(c))
+        assert set(bad_r.tolist()) == uses and set(bad_c.tolist()) == {1}, (
+            sorted(set(bad_r.tolist())), sorted(uses), set(bad_c.tolist()))
+        print(f"[22] inf in B[5, 1], n {n}: non-finite entries of C in rows "
+              f"{sorted(set(bad_r.tolist()))} (the rows that use column 5), "
+              f"column 1 only")
+    return worst
+
+
+def spmm_csr_cases(fl, ml):
+    """Phase 22's matrices, made one at a time: (name, (nrows, ncols,
+    rowptr, cols, vals), the widths of B)."""
+    hyper = (65_536, 1 << 20, *power_law_rows(65_536, 1 << 20, 12,
+                                              seed=12 + (1 << 20)))
+    yield "realistic", realistic_hypersparse(), (50,)
+    yield "4.3M x 4,096", (4_300_000, 4096, *power_law_rows(
+        4_300_000, 4096, 8, seed=18)), (50, 256)
+    yield "hypersparse", hyper, (50, 256)
+    t = sps.csr_matrix((hyper[4], hyper[3], hyper[2]), shape=hyper[:2]).T.tocsr()
+    yield "hypersparse transpose", (t.shape[0], t.shape[1], t.indptr, t.indices,
+                                    t.data), (50, 256)
+    for per_row, ncols in CSR_SWEEP:
+        yield (f"sweep {per_row} a row over {ncols}",
+               (131_072, ncols, *power_law_rows(131_072, ncols, per_row,
+                                                seed=per_row + ncols)), (50, 256))
+    yield "flagship", fl[:5], (256, 50)
+    yield "MovieLens shape", ml[:5], (50, 256)
+
+
+def sample_check(c, a, bd, rows=64, seed=0):
+    """``c = A @ B`` held to scipy in f64 on the host on a seeded sample
+    of ``rows`` rows (B's rows that they use copied from the card), within
+    tests/test_mult_dense.py's bound; returns the share of the bound."""
+    pick = np.sort(np.random.default_rng(seed).choice(a.shape[0], rows,
+                                                      replace=False))
+    sub = a[pick]
+    used = np.unique(sub.indices)
+    bs = bd[torch.from_numpy(used.astype(np.int64)).cuda()].cpu().numpy()
+    sub = sps.csr_matrix((sub.data, np.searchsorted(used, sub.indices),
+                          sub.indptr), shape=(rows, len(used)))
+    got = c[torch.from_numpy(pick).cuda()].cpu().numpy()
+    return spmm_share(got, sub.astype(np.float64) @ bs.astype(np.float64))
+
+
+def spmm_crossover(rows, n):
+    """The matrices of ``rows`` timed on both SpMM kernels at width ``n``,
+    as ``(layout bytes a stored entry, micro-block time / CSR-form time,
+    matrix)`` in the order of their bytes: the CSR form is the faster
+    where the ratio is above 1, and SpMM's crossover should lie above
+    the bytes of every ratio below 1 and below those of every ratio
+    above it, where no ratio of the other kind lies between."""
+    return sorted((r["microblock_bytes_per_entry"], r["microblock_ms"] / r["csr_ms"],
+                   r["matrix"]) for r in rows if r["n"] == n and r.get("microblock_ms"))
+
+
+def phase_spmm_csr(fl, ml, card):
+    """[22] The CSR-form SpMM kernel and its route on the card, at every
+    matrix of spmm_csr_cases and each width: the first ``CSR.mult_dense``
+    of a CSR at each width, fresh at the first (the route and the call,
+    host seconds; its launches
+    counted from 0 and held to its route; no layout built on the CSR
+    route, which the realistic case and 4.3M x 4,096 at n = 50 must take)
+    held to scipy on a row sample; the kernel against spmm_csr_reference
+    on the card; device time (device_ms) of the CSR-form kernel, the
+    micro-block SpMM (one layout, or
+    spmm_large's chunks and panels at 4.3M x 4,096; not the realistic
+    case, which is never packed), ``torch.sparse_csr_tensor(...) @ B`` and
+    the plain version, beside the bound; the route's pick within
+    CHOICE_SLACK of the faster kernel.  Returns the table and the CSR-form
+    launches of the API calls."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import _listeners, cuda as cuda_k, use_kernel
+    from csr_tpu_torch.ops import spmm as spmm_op
+    from csr_tpu_torch.utils.profiling import least_ms
+
+    rows, csr_counts = [], 0
+    events = []
+    for i, (name, (nrows, ncols, rp, cols, vals), widths) in enumerate(
+            spmm_csr_cases(fl, ml)):
+        nnz = len(cols)
+        a = sps.csr_matrix((vals, cols, rp), shape=(nrows, ncols))
+        used = int(np.count_nonzero(np.bincount(cols, minlength=ncols)))
+        csr = CSR(nrows, ncols, nnz, rp, cols, vals)  # fresh at the first width
+        on_card(csr)
+        for n in widths:
+            t_row = time.perf_counter()
+            g = torch.Generator(device="cuda").manual_seed(2210 + i)
+            bd = torch.randn(ncols, n, device="cuda", generator=g)
+            tag = f"{name}, n {n}"
+            _listeners.append(lambda e, f: events.append(e))
+            try:
+                with use_kernel("cuda"):
+                    events.clear()
+                    launch_counts(reset=True)
+                    t0 = time.perf_counter()
+                    route = cuda_k._spmm_route(csr, n)
+                    t1 = time.perf_counter()
+                    c = csr.mult_dense(bd)
+                    torch.cuda.synchronize()
+                    t2 = time.perf_counter()
+                    counts = launch_counts()
+            finally:
+                _listeners.pop()
+            if name in ("realistic", "4.3M x 4,096") and n == 50:
+                assert route == "csr", (tag, route)
+            if route == "csr":  # the call built no layout
+                want = {"spmm_csr": 1}
+                assert not [e for e in events if e.startswith("layout-build")], events
+                for attr in ("_mb_layout_cache", "_mb_large_cache"):
+                    assert n != widths[0] or getattr(csr, attr, None) is None, (tag, attr)
+            elif route == "large":
+                want = {"spmm_microblock": sum(
+                    len(p) for _, p in cuda_k._cached_large(csr, False))}
+            else:
+                want = {"spmm_microblock": 1}
+            assert {k: m for k, m in counts.items() if m} == want, (tag, route, counts)
+            csr_counts += counts["spmm_csr"]
+            share = sample_check(c, a, bd, seed=i)
+            del c
+
+            fm = cuda_k._csr_form(csr)
+            ck = spmm_op.spmm_csr(*fm, bd)
+            cr = spmm_op.spmm_csr_reference(*fm, bd)
+            torch.cuda.synchronize()
+            err = float((ck - cr).abs().max())
+            share_plain = spmm_share_card(ck, cr)
+            del ck, cr
+            fns = {"csr": lambda: spmm_op.spmm_csr(*fm, bd)}
+            lib = torch_csr(a)
+            fns["library"] = lambda: lib @ bd
+            if name != "realistic":
+                if cuda_k._needs_large(nrows, ncols):
+                    mb = cuda_k._cached_large(csr, False)
+                    fns["microblock"] = lambda: spmm_op.spmm_large(mb, bd)
+                else:
+                    mb = cuda_k._cached_layout(csr)
+                    fns["microblock"] = lambda: spmm_op.spmm(mb, bd)
+                sample_check(fns["microblock"](), a, bd, seed=i)
+            ms = {k: device_ms(fn, 10) for k, fn in fns.items()}
+            plain_ms = device_ms(lambda: spmm_op.spmm_csr_reference(*fm, bd), 2)
+            # B's rows that some entry gathers, each read once
+            bound_ms, by = least_ms(csr_bytes(nnz, nrows, used * n, nrows * n),
+                                    2 * nnz * n)
+            assert bound_ms <= ms["csr"], (tag, bound_ms, ms)
+            mb_bytes = cuda_k._layout_bytes_per_entry(csr, False)
+            kernels_ms = [ms[k] for k in ("csr", "microblock") if k in ms]
+            pick = ms["csr" if route == "csr" else "microblock"]
+            row = dict(matrix=name, n=n, shape=[nrows, ncols], nnz=nnz, route=route,
+                       csr_ms=ms["csr"], microblock_ms=ms.get("microblock"),
+                       library_ms=ms["library"], plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=by, used_columns=used,
+                       microblock_bytes_per_entry=mb_bytes, route_s=t1 - t0,
+                       first_call_s=t2 - t0, share=share, share_plain=share_plain,
+                       max_abs_err=err, launches=counts,
+                       host_s=time.perf_counter() - t_row)
+            rows.append(row)
+            mbs = ("not run" if "microblock" not in ms else
+                   f"{ms['microblock']:.5f} ms")
+            print(f"[22] {tag} ({nrows}x{ncols}, nnz {nnz}): route {route}; device "
+                  f"time: CSR-form kernel {ms['csr']:.5f} ms ({bound_ms / ms['csr']:.4f} "
+                  f"of it the bound), micro-block {mbs}, torch.sparse CSR @ B "
+                  f"{ms['library']:.5f} ms, plain {plain_ms:.5f} ms, bound "
+                  f"{bound_ms:.5f} ms by {by} ({used} of B's {ncols} rows gathered); "
+                  f"micro-block layout {mb_bytes:.2f} B "
+                  f"a stored entry; first mult_dense at this width {t2 - t0:.3f} s "
+                  f"(route {t1 - t0:.3f} s); launches {want}; share of bound vs "
+                  f"scipy (64 rows) {share:.3g}, kernel vs plain {share_plain:.3g} "
+                  f"(max abs err {err:.3g}); {row['host_s']:.1f} s on the host; "
+                  f"card {card}")
+            assert pick <= CHOICE_SLACK * min(kernels_ms), (tag, route, ms)
+            del fns, lib, fm, bd
+            torch.cuda.empty_cache()
+        del a, csr
+    print(json.dumps({"spmm_csr_route": rows}))
+    return rows, csr_counts
+
+
+#: phase 22's crossover sweep: 131,072-row power-law matrices whose (256, 1)
+#: layouts cost 8.3-24.1 B a stored entry, (entries a row, columns), at
+#: n = 50 and 256; and phase 9's 8192^2 SpGEMM operand (20 a row, 9.65 B)
+#: at the widths of B in SPMM_WIDE
+SPMM_CROSSOVER_SWEEP = tuple((k, 4096) for k in (8, 9, 10, 11, 13, 14, 16, 20, 24, 64)) + tuple(
+    (k, 1 << 16) for k in (64, 80, 96, 112, 128))
+SPMM_WIDE = (50, 256, 1024, 8192)
+
+
+def spmm_crossover_cases():
+    """The crossover sweep's matrices, made one at a time: (name, nrows,
+    ncols, (rowptr, cols, vals), the widths of B)."""
+    for per_row, ncols in SPMM_CROSSOVER_SWEEP:
+        yield (f"{per_row} a row over {ncols}", 131_072, ncols,
+               power_law_rows(131_072, ncols, per_row, seed=per_row + ncols), (50, 256))
+    yield "8192^2, 20 a row (phase 9)", 8192, 8192, sparse_square(8192, 20, 81), SPMM_WIDE
+
+
+def phase_spmm_crossover(rows, card, turns=1):
+    """[22] Where SpMM's CSR form starts to win: at each matrix of
+    spmm_crossover_cases and each width, the CSR-form kernel and the
+    micro-block one (held to each other) timed by device_ms in turns,
+    CSR form first then last, ``turns`` times each (the micro-block
+    kernel's time by kernel beside its first); then, over these and
+    ``rows`` (phase 22's table), the time ratios by layout bytes at n =
+    50 and 256 beside the port's crossover.  Returns the sweep's rows."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    sweep = []
+    for name, nrows, ncols, (rp, cols, vals), widths in spmm_crossover_cases():
+        csr = CSR(nrows, ncols, len(cols), rp, cols, vals)
+        on_card(csr)
+        mb = cuda_k._cached_layout(csr)
+        fm = cuda_k._csr_form(csr)
+        mb_bytes = cuda_k._layout_bytes_per_entry(csr, False)
+        for n in widths:
+            bd = torch.randn(ncols, n, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(nrows + ncols + n))
+            fns = {"csr": lambda: spmm_op.spmm_csr(*fm, bd),
+                   "microblock": lambda: spmm_op.spmm(mb, bd)}
+            share = spmm_share_card(fns["csr"](), fns["microblock"]())
+            runs = {"csr": [], "microblock": []}
+            for _ in range(turns):
+                for k in ("csr", "microblock", "microblock", "csr"):
+                    if k == "microblock" and not runs[k]:
+                        ms, parts = device_ms(fns[k], 10, by_kernel=True)
+                    else:
+                        ms = device_ms(fns[k], 10)
+                    runs[k].append(ms)
+            med = {k: float(np.median(v)) for k, v in runs.items()}
+            sweep.append(dict(matrix=name, n=n,
+                              microblock_bytes_per_entry=mb_bytes,
+                              csr_ms=med["csr"], microblock_ms=med["microblock"],
+                              csr_runs=runs["csr"], microblock_runs=runs["microblock"],
+                              microblock_parts=parts))
+            print(f"[22] crossover sweep, {name} ({nrows} rows), "
+                  f"n {n}, layout {mb_bytes:.2f} B a stored entry: CSR form "
+                  f"{' '.join(f'{t:.5f}' for t in runs['csr'])} ms, micro-block "
+                  f"{' '.join(f'{t:.5f}' for t in runs['microblock'])} ms (the first "
+                  f"by kernel: {', '.join(f'{k[:40]} {t:.5f}' for k, t in parts.items())}); "
+                  f"ratio of medians {med['microblock'] / med['csr']:.4f}; kernels "
+                  f"agree, share {share:.3g}; card {card}")
+            del bd, fns
+        del csr, mb, fm
+        torch.cuda.empty_cache()
+    for n in (50, 256):
+        pts = "; ".join(f"{b:.2f} {r:.3f} ({m})" for b, r, m in spmm_crossover(rows + sweep, n))
+        print(f"[22] B x {n}: layout bytes a stored entry and micro-block time / "
+              f"CSR-form time (above 1: the CSR form is the faster): {pts}; the "
+              f"port's crossover is {cuda_k._spmm_crossover(n):.4g}")
+    print(json.dumps({"spmm_crossover_sweep": sweep}))
+    return sweep
+
+
+def phase_spmm_csr_vmap(card, k=50):
+    """[22] ``torch.func.vmap`` of ``mult_vec`` at phase 20's hypersparse
+    matrix (a CSR-routed matrix): one ``spmm_csr`` launch and no layout
+    built, held to the SpMV bound against a loop of ``k`` ``mult_vec``
+    calls (the CSR-form SpMV) and against scipy; both timed by device_ms.
+    Returns the launches."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
+
+    nrows, ncols = 65_536, 1 << 20
+    rp, cols, vals = power_law_rows(nrows, ncols, 12, seed=12 + (1 << 20))
+    a = sps.csr_matrix((vals, cols, rp), shape=(nrows, ncols))
+    csr = CSR(nrows, ncols, len(cols), rp, cols, vals)
+    on_card(csr)
+    X = torch.randn(k, ncols, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2230))
+    with use_kernel("cuda"):
+        assert cuda_k._spmv_route(csr, False) == "csr"
+        launch_counts(reset=True)
+        Y = torch.func.vmap(lambda v: csr.mult_vec(v))(X)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert {m: c for m, c in counts.items() if c} == {"spmm_csr": 1}, counts
+        for attr in ("_mb_layout_cache", "_mb_large_cache"):
+            assert getattr(csr, attr, None) is None, attr
+        Y_loop = torch.stack([csr.mult_vec(X[i]) for i in range(k)])
+        ms_batch = device_ms(lambda: torch.func.vmap(lambda v: csr.mult_vec(v))(X))
+        ms_loop = device_ms(lambda: [csr.mult_vec(X[i]) for i in range(k)])
+    xs = X.cpu().numpy()
+    share = spmv_share(Y, Y_loop.cpu().numpy(), a, xs)
+    share_s = spmv_share(Y, (a.astype(np.float64) @ xs.T.astype(np.float64)).T, a, xs)
+    print(f"[22] vmap of mult_vec, hypersparse ({nrows}x{ncols}), k = {k}: launches "
+          f"{counts}, no layout built; share of bound vs the loop of {k} mult_vec "
+          f"{share:.3g}, vs scipy {share_s:.3g}; device time {ms_batch:.5f} ms a "
+          f"batch against {ms_loop:.5f} ms for the loop; card {card}")
+    return counts["spmm_csr"]
+
+
+def phase_stat_memory(card, nnz=1 << 27, per_row=32, ncols=1 << 20, seed=2240):
+    """[22] The route statistic's device memory: the peak allocated over
+    the first ``mult_vec`` of a fresh CSR of ``nnz`` entries (``per_row``
+    uniform columns a row over ``ncols``, made on the card from a seed),
+    less what was allocated before it, and the call's host seconds; the
+    product held to ``spmv_csr_reference``.  It uses only what the port
+    had before the statistic ran by chunks, so that it runs against an
+    earlier tree too (chip_smoke.py imported with that tree's package
+    first on the path)."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
+    from csr_tpu_torch.ops import _cuda, spmv as spmv_op
+
+    _cuda.library("spmv_csr")  # built before the call is timed
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nrows = nnz // per_row
+    rp = torch.arange(nrows + 1, device="cuda", dtype=torch.int32) * per_row
+    cols = torch.randint(0, ncols, (nnz,), device="cuda", generator=g,
+                         dtype=torch.int32)
+    vals = torch.randn(nnz, device="cuda", generator=g)
+    csr = CSR(nrows, ncols, nnz, rp, cols, vals)
+    x = torch.randn(ncols, device="cuda", generator=g)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with use_kernel("cuda"):
+        t0 = time.perf_counter()
+        y = csr.mult_vec(x)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    route = cuda_k._spmv_route(csr, False)
+    y_ref = spmv_op.spmv_csr_reference(csr.rowptrs, csr.colinds, csr.values, x)
+    err = float((y - y_ref).abs().max())
+    scale = float(y_ref.abs().max())
+    assert err <= 1e-4 * max(1.0, scale), (err, scale)
+    out = dict(nnz=nnz, route=route, peak_bytes=peak, peak_bytes_per_entry=peak / nnz,
+               first_call_s=secs, layout_bytes_per_entry=cuda_k._layout_bytes_per_entry(
+                   csr, False))
+    print(f"[22] the route statistic at {nnz} entries ({nrows}x{ncols}): first "
+          f"mult_vec {secs:.3f} s, route {route}, peak device memory over it "
+          f"{peak / 2**20:.1f} MiB ({peak / nnz:.2f} B a stored entry); kernel vs "
+          f"plain max abs err {err:.3g} (|y| up to {scale:.4g}); card {card}")
+    print(json.dumps({"stat_memory": out}))
+    return out
+
+
+def phase_inplace(card):
+    """[22] Fault A on the card: after ``values.mul_(2)``, ``mult_vec``,
+    ``mult_vec_t`` and ``mult_dense`` on every route (SpMV: micro-block,
+    CSR form, chunk/panel; SpMM: micro-block, CSR form, chunk/panel,
+    dense), called once before the edit so that every form is cached,
+    hold to scipy's products of the new values."""
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
+
+    rng = np.random.default_rng(2250)
+    a = sps.random(3000, 2000, 0.01, format="csr", random_state=rng,
+                   dtype=np.float32)
+    x = rng.standard_normal(2000).astype(np.float32)
+    xt = rng.standard_normal(3000).astype(np.float32)
+    b = rng.standard_normal((2000, 24)).astype(np.float32)
+    inf = float("inf")
+    settings = {  # route: (_CSR_CROSSOVER, _SPMM_CSR_CROSSOVER, _LARGE_WINDOWS, _DENSIFY_CROSSOVER)
+        "micro-block": (inf, ((1, inf),), cuda_k._LARGE_WINDOWS, ((1, 2.0),)),
+        "CSR form": (0.0, ((1, 0.0),), cuda_k._LARGE_WINDOWS, ((1, 2.0),)),
+        "chunk/panel": (inf, ((1, inf),), 4, ((1, 2.0),)),
+        "dense": (inf, ((1, inf),), cuda_k._LARGE_WINDOWS, ((1, 0.0),)),
+    }
+    names = ("_CSR_CROSSOVER", "_SPMM_CSR_CROSSOVER", "_LARGE_WINDOWS",
+             "_DENSIFY_CROSSOVER")
+    saved = [getattr(cuda_k, k) for k in names]
+    try:
+        for route, values in settings.items():
+            for k, v in zip(names, values):
+                setattr(cuda_k, k, v)
+            csr = CSR.from_scipy(a)
+            on_card(csr)
+            xd, xtd, bd = (torch.from_numpy(t).cuda() for t in (x, xt, b))
+            with use_kernel("cuda"):
+                csr.mult_vec(xd), csr.mult_vec_t(xtd), csr.mult_dense(bd)
+                csr.values.mul_(2)
+                y, yt, c = csr.mult_vec(xd), csr.mult_vec_t(xtd), csr.mult_dense(bd)
+            a2 = a.astype(np.float64) * 2
+            shares = (spmv_share(y, a2 @ x, 2 * a, x),
+                      spmv_share(yt, a2.T @ xt, (2 * a).T.tocsr(), xt),
+                      spmm_share(c, a2 @ b))
+            print(f"[22] in-place edit, {route} routes: mult_vec, mult_vec_t and "
+                  f"mult_dense after values.mul_(2) within their bounds of scipy's "
+                  f"products of the new values (shares {', '.join(f'{s:.3g}' for s in shares)})")
+    finally:
+        for k, v in zip(names, saved):
+            setattr(cuda_k, k, v)
+
+
+def spmm_csr_summary(rows, corner_err):
+    """The spmm_csr entry of the kernels line: phase 22's numbers at the
+    realistic case (n = 50), with the hypersparse matrix at n = 50 beside
+    them."""
+    by = {(r["matrix"], r["n"]): r for r in rows}
+    real, hyper = by["realistic", 50], by["hypersparse", 50]
+    out = dict(max_abs_err=max([corner_err] + [r["max_abs_err"] for r in rows]),
+               ms=real["csr_ms"], plain_ms=real["plain_ms"],
+               bound_ms=real["bound_ms"], bound_by=real["bound_by"],
+               library_ms=real["library_ms"])
+    for key in ("csr_ms", "microblock_ms", "plain_ms", "bound_ms", "library_ms"):
+        out[f"{key.replace('csr_', '')}_hypersparse"] = hyper[key]
+    return out
+
+
+def stamp(tag, t0=time.perf_counter()):
+    """Print the seconds since the script started, after ``tag``."""
+    print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s since the start")
+
+
 def main():
     card = phase_environment()
     phase_kernel_vs_plain()
     phase_spmm_kernel_vs_plain()
+    stamp("phases 1, 2, 6")
 
     from csr_tpu_torch.kernels import _listeners, cuda as cuda_k
     from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
@@ -2455,6 +2997,7 @@ def main():
     phase_spmm_timing("flagship", cuda_k._cached_layout(fl_csr), bd_fl, card)
     phase_spmm_timing("MovieLens shape", cuda_k._cached_layout(ml_csr), bd_ml, card)
     phase_densify_threshold(card)
+    stamp("phases 3-11")
 
     # the ring main path (local form, D = 4) at both shapes; the bucket
     # kernel's count is read right after it
@@ -2479,20 +3022,39 @@ def main():
                            bd_fl, card, iters=300, mm_iters=20)
     lib_ml = phase_library("16", ml_a, cuda_k._cached_layout(ml_csr), ml[5],
                            bd_ml, card, iters=100, mm_iters=10)
+    stamp("phases 12-16")
 
     # the item-item path through ESC, and spmv_large (its launches are
     # counted from 0 inside the phase, after the count above was read)
     item_item = phase_item_item(ml, card)
+    stamp("phase 17")
     large = phase_large(fl_csr, fl_a, fl[5], card)
+    stamp("phase 18")
     # the harness, vmap and grad (each path's launches counted from 0
     # inside the phase, after the counts above were read)
     harness_paths = phase_harness(fl_csr, fl_a, ml_csr, ml_a, card)
+    stamp("phase 19")
     # the six (window, pair) layouts, and the chooser held to the fastest
     layouts = phase_layouts(fl, ml, card)
+    stamp("phase 20")
     # the CSR-form kernel and its route (each matrix's launches counted
     # from 0 inside the phase, after the counts above were read)
     csr_err = phase_csr_kernel_vs_plain()
     csr_rows, csr_launches = phase_csr(fl, ml, card)
+    stamp("phase 21")
+    # the CSR-form SpMM kernel, its route, vmap on it (launches counted
+    # from 0 before each API call, after the counts above were read), and
+    # the two repaired faults
+    spmm_csr_err = phase_spmm_csr_kernel_vs_plain()
+    stamp("phase 22 (a), the kernel against its plain version")
+    spmm_csr_rows, spmm_csr_launches = phase_spmm_csr(fl, ml, card)
+    stamp("phase 22 (b, c), times and routes")
+    phase_spmm_crossover(spmm_csr_rows, card)
+    stamp("phase 22 (b), the crossover sweep")
+    spmm_csr_launches += phase_spmm_csr_vmap(card)
+    phase_stat_memory(card)
+    phase_inplace(card)
+    stamp("phase 22")
 
     def yardsticks(name):
         """Device times, the bound and the chained times at the flagship,
@@ -2514,6 +3076,8 @@ def main():
              **yardsticks("SpMM")),
         dict(BUCKET_KERNEL, launches=bucket_launches, **bucket),
         dict(CSR_KERNEL, launches=csr_launches, **csr_summary(csr_rows, csr_err)),
+        dict(CSR_SPMM_KERNEL, launches=spmm_csr_launches,
+             **spmm_csr_summary(spmm_csr_rows, spmm_csr_err)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

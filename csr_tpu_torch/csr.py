@@ -9,7 +9,11 @@ built from numpy or scipy data with no ``device`` named lies on
 one, the CPU only where there is none.  A matrix built from numpy arrays
 also keeps them as ``_host``: the micro-block packing of the ``cuda``
 kernel runs on the host, and reading the tensors back from the card
-would cost a copy.
+would cost a copy.  On the CPU the arrays are copied first (one pass
+over them), as the JAX package copies them to its device, so the
+tensors never alias the caller's arrays; on the card the kept arrays are
+the caller's, which the caller must then leave as they are: the tensors
+on the card would not see an edit of them, and the host packing would.
 
 The value array is optional: a structure-only matrix has implicit
 values of 1.0 (float32).
@@ -17,8 +21,11 @@ values of 1.0 (float32).
 The methods that work "in place" (``sort_rows``, ``normalize_rows``,
 ``fill_values``, ``drop_values``, ``_filter_zeros``) bind new tensors
 and drop the host copies; they never write into the tensors they held.
-The ``cuda`` kernel caches its layouts on the identity of the three
-tensors, so a rebinding is what tells it that a cached layout is stale.
+The ``cuda`` kernel caches its layouts, and the matrix its row shards
+and host copies, on the identity of the three tensors and on their
+version counters (:meth:`CSR._versions`), so a rebinding or an in-place
+edit of a tensor (``values.mul_(2)``) tells it that a cached form is
+stale.
 
 A CSR is a ``torch.utils._pytree`` node, as the JAX class is a pytree:
 ``torch.func.vmap`` and ``torch.func.grad`` take and return it.
@@ -79,9 +86,9 @@ class CSR:
     """
 
     __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_host",
-                 "_mb_layout_cache", "_mb_layout_t_cache", "_shard_cache",
-                 "_mb_large_cache", "_mb_large_t_cache", "_csr_t_cache",
-                 "_mb_stat_cache")
+                 "_host_versions", "_mb_layout_cache", "_mb_layout_t_cache",
+                 "_shard_cache", "_mb_large_cache", "_mb_large_t_cache",
+                 "_csr_t_cache", "_mb_stat_cache")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True,
                  device=None):
@@ -94,6 +101,9 @@ class CSR:
         if device is None:
             device = tensors[0].device if tensors else default_device()
         device = torch.device(device)
+        if device.type == "cpu":  # tensors made of them would alias them
+            rps, cis, vs = (a if a is None or isinstance(a, torch.Tensor)
+                            else np.array(a) for a in (rps, cis, vs))
         # keep the host arrays when the data arrived as numpy: packing for
         # the cuda kernel runs on the host
         if tensors:
@@ -116,6 +126,7 @@ class CSR:
         self.rowptrs = rps
         self.colinds = cis
         self._values = vs
+        self._host_versions = self._versions()
 
     # -- shape / data properties -------------------------------------------
 
@@ -142,10 +153,27 @@ class CSR:
             raise ValueError("value array too small")
         self._values = vs[: self.nnz]
 
+    def _versions(self) -> tuple:
+        """The version counters of the three tensors (None for absent
+        values, -1 for an inference tensor, which keeps none).  An
+        in-place edit of a tensor moves its counter, so a form made from
+        the tensors is stale once these differ from those it was made at."""
+        rp, ci, vs = self.rowptrs, self.colinds, self._values
+        return (-1 if rp.is_inference() else rp._version,
+                -1 if ci.is_inference() else ci._version,
+                None if vs is None else -1 if vs.is_inference() else vs._version)
+
+    def _kept_host(self):
+        """The kept host copies, or None: they are dropped once a tensor
+        has moved past the version they were taken at."""
+        if self._host is not None and self._host_versions != self._versions():
+            self._host = None
+        return self._host
+
     def host_arrays(self):
         """``(rowptrs, colinds, values)`` as numpy arrays: the kept host
         copies, or the tensors read back."""
-        if self._host is not None:
+        if self._kept_host() is not None:
             return self._host
         vs = self.values
         return (self.rowptrs.cpu().numpy(), self.colinds.cpu().numpy(),
@@ -340,8 +368,9 @@ class CSR:
             self.rowptrs, self.colinds, self.values, begin, end
         )
         out = CSR(end - begin, self.ncols, nnz, rps, cis, vs, _cast=False)
-        if self._host is not None:
+        if self._kept_host() is not None:
             out._host = structure.subset_rows_arrays(*self._host, begin, end)[:3]
+            out._host_versions = out._versions()
         return out
 
     def pick_rows(self, rows, *, include_values=True):
@@ -585,9 +614,10 @@ class CSR:
 
     def _shard_rows(self, tgt_nnz):
         """Shard by rows so each shard has at most ``tgt_nnz`` stored
-        entries.  The shard list is cached on the matrix (keyed on the
-        identity of its three tensors and the target), so a second call
-        reuses each shard's cached layout."""
+        entries.  The shard list is cached on the matrix, keyed on the
+        identity and the version counters of its three tensors and on the
+        target, so a second call reuses each shard's cached layout and an
+        in-place edit of a tensor drops it."""
         assert tgt_nnz > 0
         cached = getattr(self, "_shard_cache", None)
         if (
@@ -596,6 +626,7 @@ class CSR:
             and cached[1] is self.colinds
             and cached[2] is self._values
             and cached[3] == tgt_nnz
+            and cached[5] == self._versions()
         ):
             return cached[4]
 
@@ -616,7 +647,8 @@ class CSR:
             rest_off += split
         shards.append(rest)
         self._shard_cache = (
-            self.rowptrs, self.colinds, self._values, tgt_nnz, shards
+            self.rowptrs, self.colinds, self._values, tgt_nnz, shards,
+            self._versions(),
         )
         return shards
 

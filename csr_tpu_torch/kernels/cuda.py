@@ -7,13 +7,20 @@ and of its transpose) are packed on the host at first use and cached on
 the matrix.  SpMV in both directions runs the hand-written kernel behind
 :func:`csr_tpu_torch.ops.spmv.spmv`, or, where the layout would be mostly
 padding, the one behind :func:`csr_tpu_torch.ops.spmv.spmv_csr` on the
-matrix's own CSR tensors; SpMM (``mult_dense``) and the
-sparse leg of SpGEMM (``mult_ab``, ``mult_abt``) run the one behind
-:func:`csr_tpu_torch.ops.spmm.spmm`.  On a CPU matrix each wrapper runs
-its kernel's plain PyTorch version.
+matrix's own CSR tensors; SpMM (``mult_dense``) and the sparse leg of
+SpGEMM (``mult_ab``, ``mult_abt``) run the one behind
+:func:`csr_tpu_torch.ops.spmm.spmm`, or, likewise, the one behind
+:func:`csr_tpu_torch.ops.spmm.spmm_csr`.  On a CPU matrix each wrapper
+runs its kernel's plain PyTorch version.
+
+Every cached form (layouts, the transpose's CSR tensors, the route
+statistic, the handle's torch handle and dense form) is keyed on the
+identity of the matrix's three tensors and on their version counters
+(:func:`_fresh`), so an op that rebinds them and an in-place edit
+(``values.mul_(2)``) alike make it stale.
 
 Routing, as in the JAX package, decided from shapes and dtypes before
-any launch (and, for SpMV, from the structure's micro-row count):
+any launch (and from the structure's micro-row count):
 
 * ``nnz == 0`` returns zeros;
 * f64 values or operands go to the ``torch`` backend, as the JAX package
@@ -27,42 +34,46 @@ any launch (and, for SpMV, from the structure's micro-row count):
   layout built; for ``mult_vec_t`` on the transpose's CSR tensors, made
   once by the native host transpose and cached on the matrix (a
   ``layout-build-csr`` trace event).  The statistic is the layout's
-  micro-row count, taken with torch ops on the matrix's device
-  (:func:`_microrows`; per panel past the packing range) and cached.
-  The crossover was measured on the H100 (chip_smoke phase 21, PERF.md).
-  Under a ``torch.func`` transform the micro-block route's vmap rule runs
-  instead (one SpMM launch a batch, the layout built on demand);
+  micro-row count, taken with torch ops on the matrix's device by chunks
+  of about :data:`_STAT_CHUNK` entries (:func:`_microrows`; per panel
+  past the packing range) and cached.  The crossover was measured on the
+  H100 (chip_smoke phase 21, PERF.md).  Under a ``torch.func`` transform
+  the same route's vmap rule runs: one ``spmm_csr`` launch a batch;
 * other SpMV of a matrix (or a transpose) of more than
   :data:`_LARGE_WINDOWS` row windows, or outside the packing range,
   runs ``ops/spmv.py:spmv_large``: chunks of :data:`_LARGE_WINDOWS` row
   windows and panels of as many column windows, the SpMV kernel once a
   panel (``"large"``).  The layouts are cached on the matrix as the
   others are.  The rest runs the micro-block kernel on one layout
-  (``"microblock"``).  SpMM
-  of a matrix outside the packing range goes to the ``torch`` backend,
-  as the JAX package runs no SpMM on panels;
+  (``"microblock"``);
 * SpMM of a matrix whose dense f32 form fits the dense budget of
   :mod:`csr_tpu_torch.ops.spgemm` and whose density is at least
   :func:`_min_density` of B's width is a densified f32 ``torch.matmul``
   with TF32 off (the JAX package's ``Precision.HIGHEST`` product, which
-  it leaves to XLA); the threshold was measured on the H100 (PERF.md);
-  the rest runs the SpMM kernel;
+  it leaves to XLA); the threshold was measured on the H100 (PERF.md).
+  Other f32 SpMM of a matrix whose layout would cost more than
+  :func:`_spmm_crossover` bytes a stored entry at B's width runs the
+  CSR-form kernel ``ops/spmm.py:spmm_csr`` on the matrix's own tensors
+  (:func:`_spmm_route` says ``"csr"``), one call whatever the size; the
+  rest runs the micro-block SpMM kernel, once a chunk and panel
+  (``ops/spmm.py:spmm_large``) past :func:`_needs_large`'s limit.  No
+  f32 SpMM runs the ``torch`` backend;
 * SpGEMM densifies B (or B^T) within the budget of
   :mod:`csr_tpu_torch.ops.spgemm` and multiplies A by it as SpMM does;
   past that budget it runs that module's expand-sort-compress (ESC).
 
-Micro-block SpMV in either direction goes through
-:func:`csr_tpu_torch.ops.spmv.product`, and so does any SpMV under a
-``torch.func`` transform, so ``torch.func.vmap`` over the operand runs
-one SpMM launch a layout on the batch.  No product has a
-backward: ``mult_vec``, ``mult_vec_t`` and ``mult_dense`` raise
-ValueError when grad mode is on and the operand or the values require
-grad, on the CPU and on the card alike (the ``torch`` backend
-differentiates).
+SpMV in either direction goes through
+:func:`csr_tpu_torch.ops.spmv.product`, so ``torch.func.vmap`` over the
+operand runs SpMM on the batch: one SpMM launch a layout, or one
+CSR-form SpMM.  No product has a backward: ``mult_vec``, ``mult_vec_t``
+and ``mult_dense`` raise ValueError when grad mode is on and the operand
+or the values require grad, on the CPU and on the card alike (the
+``torch`` backend differentiates).
 
 Each SpMM or SpGEMM emits a ``mult_dense`` or ``spgemm`` trace event
-whose ``route`` is ``zeros``, ``torch``, ``dense``, ``kernel`` or (SpGEMM
-only) ``esc``.
+whose ``route`` is ``zeros``, ``torch`` (f64), ``dense``, ``csr``,
+``kernel`` (the micro-block kernel, one layout or its chunks and panels)
+or (SpGEMM only) ``esc``.
 """
 
 from __future__ import annotations
@@ -97,9 +108,12 @@ _LARGE_WINDOWS = microblock.MAX_RB
 
 
 def _needs_large(nrows: int, ncols: int) -> bool:
-    """Whether SpMV of an ``nrows x ncols`` matrix runs ``spmv_large``."""
+    """Whether the micro-block kernels take an ``nrows x ncols`` matrix in
+    chunks and panels (``spmv_large``, ``spmm_large``): past the window
+    budget, or outside what the layout can address at the wider window
+    (which :func:`microblock.choose_layout` picks wherever it can)."""
     return (-(-nrows // microblock.LANE) > _LARGE_WINDOWS
-            or not _packable(nrows, ncols))
+            or not microblock.in_range(nrows, ncols, 2 * microblock.LANE))
 
 
 #: the CSR-form route: SpMV of a matrix (or, for ``mult_vec_t``, of its
@@ -122,58 +136,151 @@ _CSR_CROSSOVER = 20.0
 _MICROROW_BYTES = microblock.LANE * (4 + 2) + 4
 
 
-def _microrows(rows, cols, nrows: int, ncols: int) -> int:
-    """Micro-rows of the (256, 1) micro-block layout of the entries at
-    ``(rows, cols)`` (int64 tensors) of an ``nrows x ncols`` matrix, or,
-    past :func:`_needs_large`'s limit, of ``spmv_large``'s chunk and panel
-    layouts together: on the tensors' device with torch ops, without the
-    host planner's sort.  Entries are keyed by (stripe, 256-column window),
-    a stripe being a 128-row window of one panel; each key holds
-    ``ceil(count / SLOT_CAP)`` micro-rows, and each stripe's are padded to
-    ``ACC_GROUP``.  Equals ``microblock.estimate_microrows(rp, cols, 256)``
-    wherever the matrix packs."""
-    span = ncols
-    if _needs_large(nrows, ncols):
-        span = _LARGE_WINDOWS * microblock.LANE
-    n_cb = -(-span // (2 * microblock.LANE))  # 256-column windows a panel
-    panel = torch.div(cols, span, rounding_mode="floor")
-    stripe = (rows >> 7) * -(-ncols // span) + panel
-    keys, counts = torch.unique(stripe * n_cb + ((cols - panel * span) >> 8),
-                                return_counts=True)
-    mrs = -torch.div(-counts, microblock.SLOT_CAP, rounding_mode="floor")
-    _, inverse = torch.unique_consecutive(
-        torch.div(keys, n_cb, rounding_mode="floor"), return_inverse=True)
-    per_stripe = torch.zeros(int(inverse[-1]) + 1, dtype=torch.int64,
-                             device=mrs.device).index_add_(0, inverse, mrs)
-    group = microblock.ACC_GROUP
-    return int((-torch.div(-per_stripe, group, rounding_mode="floor") * group).sum())
+#: entries a chunk of the route statistic takes (plus at most one 256-row
+#: window of the matrix): :func:`_microrows` holds one chunk's temporaries
+#: at a time (int32 rows and columns, int64 keys and the sort's), so its
+#: peak does not grow with the matrix.  A window of more entries than this
+#: (dense rows, a transpose's popular items) is a chunk of its own, counted
+#: by slices of this many entries into one int64 count a key: ``ncols /
+#: 256`` counts forward, ``ncols / 128`` for the transpose, whatever its
+#: entries.  The first mult_vec of a matrix of 2^27 entries peaked at
+#: 610.1 MiB of device memory, against 8,734.8 MiB when the statistic took
+#: the whole matrix at once (an NVIDIA H100 80GB HBM3 at 700 W,
+#: chip_smoke.py's phase_stat_memory)
+_STAT_CHUNK = 1 << 23
 
 
-def _layout_bytes_per_entry(csr, transpose: bool) -> float:
+def _stat_edges(rowptrs: torch.Tensor, period: int) -> list:
+    """Row edges of :func:`_microrows`' chunks of about
+    :data:`_STAT_CHUNK` entries: the starts of ``period``-row panels and,
+    within each, starts of its own 256-row windows (counted from the
+    panel's start), so no key of either direction crosses an edge.  A
+    window of more than :data:`_STAT_CHUNK` entries is a chunk alone."""
+    nrows = rowptrs.shape[0] - 1
+    dev = rowptrs.device
+    panels = torch.arange(0, nrows, period, device=dev)
+    starts = (panels[:, None] + torch.arange(0, min(period, nrows), 256,
+                                             device=dev)).flatten()
+    starts = starts[starts < nrows]
+    ends = torch.cat([starts[1:], starts.new_tensor([nrows])])
+    at = rowptrs[starts].long()
+    heavy = rowptrs[ends].long() - at > _STAT_CHUNK
+    targets = torch.arange(_STAT_CHUNK, max(int(rowptrs[-1]), _STAT_CHUNK),
+                           _STAT_CHUNK, device=dev)
+    picks = starts[torch.searchsorted(at, targets, right=True) - 1]
+    return sorted({0, nrows, *panels.tolist(), *picks.tolist(),
+                   *starts[heavy].tolist(), *ends[heavy].tolist()})
+
+
+def _key_microrows(colinds, k0: int, k1: int, key, size: int) -> torch.Tensor:
+    """Micro-rows of each of ``size`` keys over entries ``k0:k1`` (those
+    of a heavy window, or of one stripe of it), ``key`` mapping int64
+    columns to keys: counted by slices of :data:`_STAT_CHUNK` entries."""
+    counts = torch.zeros(size, dtype=torch.int64, device=colinds.device)
+    for k in range(k0, k1, _STAT_CHUNK):
+        counts += torch.bincount(key(colinds[k : min(k + _STAT_CHUNK, k1)].long()),
+                                 minlength=size)
+    return -torch.div(-counts, microblock.SLOT_CAP, rounding_mode="floor")
+
+
+def _microrows(csr, transpose: bool) -> int:
+    """Micro-rows of the (256, 1) micro-block layout of ``csr`` (or of
+    its transpose), or, past :func:`_needs_large`'s limit, of
+    ``spmv_large``'s chunk and panel layouts together: on the matrix's
+    device with torch ops, without the host planner's sort.  Entries are
+    keyed by (stripe, 256-column window), a stripe being a 128-row window
+    of one panel; each key holds ``ceil(count / SLOT_CAP)`` micro-rows, and
+    each stripe's are padded to ``ACC_GROUP``.  Equals
+    ``microblock.estimate_microrows(rp, cols, 256)`` wherever the matrix
+    packs.
+
+    The matrix's rows go in chunks (:func:`_stat_edges`) whose edges are
+    multiples of 128 rows and lie on the transpose's panel-local 256-wide
+    windows, so a key of either direction lies in one chunk: forward a
+    chunk holds whole stripes, which are padded and summed in it; for the
+    transpose a chunk lies in one panel of its columns, and each stripe's
+    micro-rows are added up over the panel's chunks before the padding."""
+    nrows, ncols = csr.nrows, csr.ncols
+    if csr.nnz == 0:
+        return 0
+    span = _LARGE_WINDOWS * microblock.LANE
+    # the width of a column panel of the matrix, and of the transpose's
+    # (a run of the matrix's rows)
+    col_period = span if _needs_large(nrows, ncols) else ncols
+    row_period = span if _needs_large(ncols, nrows) else nrows
+    period = row_period if transpose else col_period
+    n_cb = -(-period // (2 * microblock.LANE))  # 256-column windows a panel
+    n_panels = -(-(nrows if transpose else ncols) // period)
+    rp = csr.rowptrs
+    dev = rp.device
+    edges = _stat_edges(rp, row_period)
+    bounds = rp[torch.tensor(edges, device=dev)].tolist()
+    group, total = microblock.ACC_GROUP, 0
+    per_stripe = (torch.zeros(-(-ncols // microblock.LANE), dtype=torch.int64,
+                              device=dev) if transpose else None)
+
+    def padded(mrs):
+        return int((-torch.div(-mrs, group, rounding_mode="floor") * group).sum())
+
+    for i, (r0, r1) in enumerate(zip(edges, edges[1:])):
+        k0, k1 = bounds[i], bounds[i + 1]
+        if k1 - k0 > _STAT_CHUNK and r1 - r0 <= 256:  # a heavy window alone
+            if transpose:  # one window of the row panel: a key a stripe
+                per_stripe += _key_microrows(csr.colinds, k0, k1, lambda c: c >> 7,
+                                             per_stripe.numel())
+            else:  # keys (panel, column window), a stripe at a time, padded a panel
+                for s0 in range(r0, r1, microblock.LANE):
+                    mrs = _key_microrows(
+                        csr.colinds, int(rp[s0]), int(rp[min(s0 + microblock.LANE, r1)]),
+                        lambda c: c // period * n_cb + c % period // 256,
+                        n_panels * n_cb)
+                    total += padded(mrs.view(n_panels, n_cb).sum(1))
+        elif k1 > k0:
+            rows = torch.repeat_interleave(
+                torch.arange(r1 - r0, dtype=torch.int32, device=dev),
+                torch.diff(rp[r0 : r1 + 1]), output_size=k1 - k0)
+            cols = csr.colinds[k0:k1].to(torch.int32)
+            if transpose:  # stripe = column >> 7, window in the row panel
+                key = ((cols >> 7).long() * n_cb
+                       + ((r0 % period + rows) >> 8).long())
+            else:
+                panel = cols // period
+                key = (((rows >> 7).long() * n_panels + panel) * n_cb
+                       + ((cols - panel * period) >> 8))
+            keys, counts = torch.unique(key, return_counts=True)
+            mrs = -torch.div(-counts, microblock.SLOT_CAP, rounding_mode="floor")
+            stripe = torch.div(keys, n_cb, rounding_mode="floor")
+            if transpose:
+                per_stripe.index_add_(0, stripe, mrs)
+            else:
+                _, inverse = torch.unique_consecutive(stripe, return_inverse=True)
+                total += padded(torch.zeros(int(inverse[-1]) + 1, dtype=torch.int64,
+                                            device=dev).index_add_(0, inverse, mrs))
+        if transpose and (r1 == nrows or r1 % period == 0):  # a panel ends
+            total += padded(per_stripe)
+            per_stripe.zero_()
+    return total
+
+
+def _layout_bytes_per_entry(csr, transpose: bool, versions=None) -> float:
     """Device bytes a stored entry of the (256, 1) micro-block layout of
     ``csr`` (or of its transpose), from :func:`_microrows` (cached on the
     matrix as the layouts are, and by ``_LARGE_WINDOWS``)."""
-    stats = _cached(csr, "_mb_stat_cache", lambda c, t: {}, False)
+    stats = _cached(csr, "_mb_stat_cache", lambda c, t: {}, False, versions)
     key = (transpose, _LARGE_WINDOWS)
     if key not in stats:
-        rows = torch.repeat_interleave(
-            torch.arange(csr.nrows, device=csr.device),
-            torch.diff(csr.rowptrs.long()), output_size=csr.nnz)
-        cols = csr.colinds.long()
-        shape = (csr.nrows, csr.ncols)
-        if transpose:
-            rows, cols, shape = cols, rows, shape[::-1]
-        stats[key] = _microrows(rows, cols, *shape)
+        stats[key] = _microrows(csr, transpose)
     return stats[key] * _MICROROW_BYTES / max(csr.nnz, 1)
 
 
-def _spmv_route(csr, transpose: bool) -> str:
+def _spmv_route(csr, transpose: bool, versions=None) -> str:
     """The f32 SpMV route of ``csr`` (``mult_vec``) or of its transpose
     (``mult_vec_t``): ``"csr"`` where the micro-block layout would cost
     more than :data:`_CSR_CROSSOVER` bytes a stored entry, else
     ``"large"`` past :func:`_needs_large`'s limit, else
     ``"microblock"``."""
-    if csr.nnz and _layout_bytes_per_entry(csr, transpose) > _CSR_CROSSOVER:
+    if (csr.nnz and _layout_bytes_per_entry(csr, transpose, versions)
+            > _CSR_CROSSOVER):
         return "csr"
     nrows, ncols = (csr.ncols, csr.nrows) if transpose else (csr.nrows, csr.ncols)
     return "large" if _needs_large(nrows, ncols) else "microblock"
@@ -205,9 +312,9 @@ def _build_csr_t(csr, transpose: bool):
     return rp, cis, vals
 
 
-def _cached_csr_t(csr):
+def _cached_csr_t(csr, versions=None):
     """The transpose's CSR tensors, cached on the matrix."""
-    return _cached(csr, "_csr_t_cache", _build_csr_t, transpose=True)
+    return _cached(csr, "_csr_t_cache", _build_csr_t, True, versions)
 
 
 def _host_form(csr, transpose: bool):
@@ -255,73 +362,82 @@ def _build_large(csr, transpose: bool):
     return chunks
 
 
-def _cached(csr, attr: str, build, transpose: bool):
-    """``build(csr, transpose)``, cached on the matrix and keyed on the
-    identity of its three tensors, so an op that replaces them
-    invalidates the cache."""
+def _fresh(cached, csr, versions=None) -> bool:
+    """Whether a form cached as ``(rowptrs, colinds, values, form,
+    versions)`` was made from ``csr``'s tensors as they are now: the same
+    three tensors (an op that replaces them rebinds), at the same version
+    counters (an in-place edit such as ``values.mul_(2)`` moves one).
+    ``versions`` is ``csr._versions()`` where the caller has read it."""
+    return (cached is not None and cached[0] is csr.rowptrs
+            and cached[1] is csr.colinds and cached[2] is csr.values
+            and cached[4] == (csr._versions() if versions is None else versions))
+
+
+def _entry(csr, form) -> tuple:
+    """``form`` as a cache entry for :func:`_fresh`."""
+    return (csr.rowptrs, csr.colinds, csr.values, form, csr._versions())
+
+
+def _cached(csr, attr: str, build, transpose: bool, versions=None):
+    """``build(csr, transpose)``, cached on the matrix while
+    :func:`_fresh`: a rebinding or an in-place edit of its tensors
+    invalidates it.  A call that looks up several forms reads
+    ``versions`` once and passes it to each."""
     cached = getattr(csr, attr, None)
-    if (
-        cached is not None
-        and cached[0] is csr.rowptrs
-        and cached[1] is csr.colinds
-        and cached[2] is csr.values
-    ):
+    if _fresh(cached, csr, versions):
         return cached[3]
     built = build(csr, transpose)
-    setattr(csr, attr, (csr.rowptrs, csr.colinds, csr.values, built))
+    setattr(csr, attr, _entry(csr, built))
     return built
 
 
-def _cached_layout(csr) -> microblock.MicroBlockLayout:
-    return _cached(csr, "_mb_layout_cache", _build, transpose=False)
+def _cached_layout(csr, versions=None) -> microblock.MicroBlockLayout:
+    return _cached(csr, "_mb_layout_cache", _build, False, versions)
 
 
-def _cached_layout_t(csr) -> microblock.MicroBlockLayout:
-    return _cached(csr, "_mb_layout_t_cache", _build, transpose=True)
+def _cached_layout_t(csr, versions=None) -> microblock.MicroBlockLayout:
+    return _cached(csr, "_mb_layout_t_cache", _build, True, versions)
 
 
-def _cached_large(csr, transpose: bool):
+def _cached_large(csr, transpose: bool, versions=None):
     """Chunk/panel layouts of ``csr`` (or of its transpose), cached."""
     attr = "_mb_large_t_cache" if transpose else "_mb_large_cache"
-    return _cached(csr, attr, _build_large, transpose)
+    return _cached(csr, attr, _build_large, transpose, versions)
 
 
 class CudaHandle:
-    """The CSR plus its lazily built layouts and dense form."""
+    """The CSR plus its lazily built forms: the layouts are cached on the
+    matrix, the torch handle and the dense form on the handle, all while
+    :func:`_fresh`."""
 
-    __slots__ = ("csr", "_layout", "_layout_t", "_torch_handle", "_dense")
+    __slots__ = ("csr", "_torch_handle", "_dense")
 
     def __init__(self, csr):
         self.csr = csr
-        self._layout = None
-        self._layout_t = None
         self._torch_handle = None
         self._dense = None
 
     @property
     def layout(self) -> microblock.MicroBlockLayout:
-        if self._layout is None:
-            self._layout = _cached_layout(self.csr)
-        return self._layout
+        return _cached_layout(self.csr)
 
     @property
     def layout_t(self) -> microblock.MicroBlockLayout:
-        if self._layout_t is None:
-            self._layout_t = _cached_layout_t(self.csr)
-        return self._layout_t
+        return _cached_layout_t(self.csr)
 
     @property
     def torch_handle(self):
-        if self._torch_handle is None:
-            self._torch_handle = _torch_k.to_handle(self.csr)
-        return self._torch_handle
+        if not _fresh(self._torch_handle, self.csr):
+            self._torch_handle = _entry(self.csr, _torch_k.to_handle(self.csr))
+        return self._torch_handle[3]
 
     @property
     def dense(self) -> torch.Tensor:
-        """The matrix densified in f32, cached on the handle."""
-        if self._dense is None:
-            self._dense = _torch_k.densify(self.torch_handle, torch.float32)
-        return self._dense
+        """The matrix densified in f32."""
+        if not _fresh(self._dense, self.csr):
+            self._dense = _entry(
+                self.csr, _torch_k.densify(self.torch_handle, torch.float32))
+        return self._dense[3]
 
 
 def to_handle(csr):
@@ -340,8 +456,6 @@ def release_handle(h, drop_cache: bool = False):
     """Drop the handle's references.  The layouts stay cached on the
     matrix unless ``drop_cache``, so repeated calls pack nothing."""
     trace("release_handle", kernel="cuda", nnz=h.csr.nnz)
-    h._layout = None
-    h._layout_t = None
     h._torch_handle = None
     h._dense = None
     if drop_cache:
@@ -353,8 +467,6 @@ def release_handle(h, drop_cache: bool = False):
 
 def order_columns(h):
     h.csr.sort_rows()
-    h._layout = None
-    h._layout_t = None
 
 
 def _refuse_grad(h, operand, op: str) -> None:
@@ -386,16 +498,13 @@ def _mult(h, v, transpose: bool):
         fn = _torch_k.mult_vec_t if transpose else _torch_k.mult_vec
         return fn(h.torch_handle, v)
     nrows, ncols = (c.ncols, c.nrows) if transpose else (c.nrows, c.ncols)
-    route = _spmv_route(c, transpose)
-    # under a torch.func transform the micro-block route's vmap rule runs
-    # (one SpMM launch a batch), whatever the route
-    if route == "csr" and torch._C._functorch.maybe_current_level() is None:
-        rp, ci, vals = _cached_csr_t(c) if transpose else _csr_form(c)
-        return _spmv_op.spmv_csr(rp, ci, vals, v).to(out_dtype)
-    if _needs_large(nrows, ncols):
-        a = _cached_large(c, transpose)
+    ver = c._versions()  # read once for every cache this call looks up
+    if _spmv_route(c, transpose, ver) == "csr":
+        a = _spmv_op.CsrForm(*(_cached_csr_t(c, ver) if transpose else _csr_form(c)))
+    elif _needs_large(nrows, ncols):
+        a = _cached_large(c, transpose, ver)
     else:
-        a = h.layout_t if transpose else h.layout
+        a = (_cached_layout_t if transpose else _cached_layout)(c, ver)
     return _spmv_op.product(a, v, ncols, op).to(out_dtype)
 
 
@@ -430,11 +539,16 @@ def mult_vec_t(h, v):
 _DENSIFY_CROSSOVER = ((50, 1.0), (128, 0.35), (256, 0.1706), (8192, 0.08193))
 
 
+def _at_width(points, n: int) -> float:
+    """The value of measured (B width, value) ``points`` at width ``n``:
+    linear in log n between them, constant past their ends."""
+    widths, values = zip(*points)
+    return float(np.interp(np.log(max(n, 1)), np.log(widths), values))
+
+
 def _min_density(n: int) -> float:
-    """The crossover density at width ``n``: linear in log n between the
-    points of :data:`_DENSIFY_CROSSOVER`, constant past its ends."""
-    widths, densities = zip(*_DENSIFY_CROSSOVER)
-    return float(np.interp(np.log(max(n, 1)), np.log(widths), densities))
+    """The crossover density of :data:`_DENSIFY_CROSSOVER` at width ``n``."""
+    return _at_width(_DENSIFY_CROSSOVER, n)
 
 
 def _dense_affordable(csr, n: int) -> bool:
@@ -443,13 +557,6 @@ def _dense_affordable(csr, n: int) -> bool:
     if elems == 0 or elems * 4 > _spgemm_op.max_dense_bytes:
         return False
     return csr.nnz / elems >= _min_density(n)
-
-
-def _packable(nrows: int, ncols: int) -> bool:
-    """Whether the micro-block layout can address an ``nrows x ncols``
-    matrix (at the wider window, which :func:`microblock.choose_layout`
-    picks wherever it can)."""
-    return microblock.in_range(nrows, ncols, 2 * microblock.LANE)
 
 
 def _matmul_f32(a, b):
@@ -463,19 +570,65 @@ def _matmul_f32(a, b):
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+#: SpMM's CSR-form route: f32 SpMM with B ``n`` wide of a matrix whose
+#: (256, 1) micro-block layout would cost more device bytes a stored entry
+#: (:func:`_layout_bytes_per_entry`) than :func:`_spmm_crossover` of ``n``
+#: runs ``ops/spmm.py:spmm_csr`` on the matrix's own CSR tensors; the rest
+#: runs the micro-block kernel (``spmm_large`` past the packing range).
+#: (B width, bytes an entry) points, log-interpolated in the width.
+#: Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 22,
+#: its crossover sweep of 131,072-row matrices, two processes that agreed
+#: within 1%; PERF.md).  At n = 50 the micro-block kernel was the faster
+#: up to 21.44 B an entry (time ratio 0.97) over 4,096 columns and up to
+#: 19.30 (0.94) over 2^16, the CSR form at 24.12 (1.03 and 1.08); the
+#: ratio, log-interpolated, crosses 1 at 22.7 and 21.2: 22.  At n = 256
+#: the CSR form won at every sweep matrix from 8.27 B up (1.16-1.46 over
+#: 4,096 columns, 1.005-1.05 over 2^16), tied at the MovieLens-25M shape
+#: (10.13 B, 1.008) and lost at the flagship (7.18, 0.97) and at an
+#: 8192^2 matrix of 20 entries a row (9.65; 0.92, and 0.82 at n = 1,024
+#: and 8,192): bytes an entry alone do not separate these.  The point is
+#: 11, between the MovieLens shape, which stays on the micro-block kernel
+#: as the flagship does, and the next sweep matrix (12.06, 1.33).
+_SPMM_CSR_CROSSOVER = ((50, 22.0), (256, 11.0))
+
+
+def _spmm_crossover(n: int) -> float:
+    """Layout bytes a stored entry above which SpMM with B ``n`` wide
+    takes the CSR form (:data:`_SPMM_CSR_CROSSOVER` at width ``n``)."""
+    return _at_width(_SPMM_CSR_CROSSOVER, n)
+
+
+def _spmm_route(csr, n: int, versions=None) -> str:
+    """The f32 SpMM route of ``csr`` with B ``n`` wide, past the dense
+    route: ``"csr"`` where the micro-block layout would cost more than
+    :func:`_spmm_crossover` bytes a stored entry, else ``"large"`` past
+    :func:`_needs_large`'s limit, else ``"kernel"``."""
+    if (csr.nnz and _layout_bytes_per_entry(csr, False, versions)
+            > _spmm_crossover(n)):
+        return "csr"
+    return "large" if _needs_large(csr.nrows, csr.ncols) else "kernel"
+
+
 def _sparse_times_dense(h, b, op: str):
     """``A @ b`` for f32 dense ``b`` (A's columns by n), on the route its
-    shape picks: densified matmul, the SpMM kernel, or (outside the
-    packing range) the torch backend.  Emits a trace event naming it."""
+    shape picks: densified matmul, the CSR-form SpMM kernel, or the
+    micro-block one (a launch a chunk and panel past the packing range).
+    Emits a trace event naming it (``kernel`` for both micro-block
+    forms)."""
     c = h.csr
-    if _dense_affordable(c, b.shape[1]):
-        trace(op, route="dense", shape=(c.nrows, c.ncols), n=b.shape[1])
+    n = b.shape[1]
+    if _dense_affordable(c, n):
+        trace(op, route="dense", shape=(c.nrows, c.ncols), n=n)
         return _matmul_f32(h.dense, b)
-    if not _packable(c.nrows, c.ncols):
-        trace(op, route="torch", shape=(c.nrows, c.ncols), n=b.shape[1])
-        return _torch_k.mult_dense(h.torch_handle, b)
-    trace(op, route="kernel", shape=(c.nrows, c.ncols), n=b.shape[1])
-    return _spmm_op.spmm(h.layout, b)
+    ver = c._versions()  # read once for every cache this call looks up
+    route = _spmm_route(c, n, ver)
+    trace(op, route="csr" if route == "csr" else "kernel",
+          shape=(c.nrows, c.ncols), n=n)
+    if route == "csr":
+        return _spmm_op.spmm_csr(*_csr_form(c), b)
+    if route == "large":
+        return _spmm_op.spmm_large(_cached_large(c, False, ver), b)
+    return _spmm_op.spmm(_cached_layout(c, ver), b)
 
 
 def mult_dense(h, B):

@@ -46,6 +46,10 @@ ENTRIES = {
     # rowptrs, ptr64, colinds, values (or NULL), x, y, nrows, nnz, zeroed,
     # stream
     "spmv_csr": [_vp, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp],
+    # rowptrs, ptr64, colinds, values (or NULL), b, ldb, c, n, nrows, nnz,
+    # carry, carry_row, vec, stream
+    "spmm_csr": [_vp, _i32, _vp, _vp, _vp, _i64, _vp, _i64, _i64, _i64, _vp,
+                 _vp, _i32, _vp],
 }
 
 #: loaded libraries by kernel name
@@ -134,6 +138,21 @@ def spmv_csr(rowptrs, colinds, values, x, y, zeroed: bool) -> None:
             colinds.data_ptr(), None if values is None else values.data_ptr(),
             x.data_ptr(), y.data_ptr(), rowptrs.shape[0] - 1, colinds.shape[0],
             int(zeroed), torch.cuda.current_stream(y.device).cuda_stream)
+
+
+def spmm_csr(rowptrs, colinds, values, b, c, carry, carry_row,
+             vec: bool) -> None:
+    """Launch the CSR-form SpMM kernel, ``C = A @ B`` read from the
+    matrix's own tensors (``values`` None: every value 1), and its carry
+    pass, on the current stream; ``carry`` and ``carry_row`` are its
+    scratch, a row a share; with ``vec`` it takes 16 B loads of B and
+    stores of C.  The caller has checked the tensors."""
+    _launch("spmm_csr", rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64),
+            colinds.data_ptr(), None if values is None else values.data_ptr(),
+            b.data_ptr(), b.stride(0), c.data_ptr(), c.shape[1],
+            rowptrs.shape[0] - 1, colinds.shape[0], carry.data_ptr(),
+            carry_row.data_ptr(), int(vec),
+            torch.cuda.current_stream(c.device).cuda_stream)
 
 
 def spmv_bucket_occupancy() -> tuple:

@@ -147,7 +147,7 @@ def _esc_rows(a_vals, a_rps, a_cols, b_rps, b_cols, b_vals,
 def _host_index(csr, i: int) -> np.ndarray:
     """``rowptrs`` (``i`` 0) or ``colinds`` (1) of ``csr`` on the host:
     the kept copy, or the one tensor read back."""
-    if csr._host is not None:
+    if csr._kept_host() is not None:
         return np.asarray(csr._host[i])
     return (csr.rowptrs, csr.colinds)[i].cpu().numpy()
 

@@ -17,6 +17,16 @@ and B dense ``(A.ncols, n)``, row-major.
 * :func:`launch_plan` is the kernel's launch geometry as plain Python,
   handed to the kernel's host code with every launch.
 * :data:`launches` counts kernel launches.
+* :func:`spmm_large` runs :func:`spmm` once a panel over
+  ``ops/spmv.py:build_large_layouts``'s chunks, for matrices past the
+  packer's range.
+* :func:`spmm_csr` is the wrapper of the CSR-form kernel
+  ``csrc/spmm_csr.cu``, a second body for the same Pallas kernel that
+  reads the matrix's own CSR tensors (no packing), for matrices whose
+  micro-block layout is mostly padding or that do not pack.
+  :func:`spmm_csr_reference` is its plain PyTorch version, split as the
+  kernel splits (``ops/spmv.py:csr_parts``), and :data:`csr_launches` its
+  launch count.
 """
 
 from __future__ import annotations
@@ -27,9 +37,16 @@ import torch
 
 from .microblock import (ACC_GROUP, LANE, SLOT_CAP, MicroBlockLayout,
                          check_on_card)
+from .spmv import check_csr_operands, csr_parts
 
 #: number of launches of the CUDA kernel (plain-version calls not counted)
 launches = 0
+#: number of calls that launched the CSR-form CUDA kernel (its two
+#: launches, the shares and the carries, count once)
+csr_launches = 0
+#: merge items (row ends and stored entries) in a block's share of the
+#: CSR-form kernel: its ``kWarps * kWarpItems`` (``csrc/spmm_csr.cu``)
+CSR_TILE = 1024
 
 #: elements of B's rows gathered at once by :func:`scatter_rows` (256 MB
 #: of f32), so the plain version's temporaries stay near 1 GB at any size
@@ -256,4 +273,89 @@ def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
             layout.epos_shift, layout.nrows, plan.lanes, plan.tiles_per_chunk,
         )
     launches += 1
+    return c
+
+
+def spmm_large(chunks, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` over ``ops/spmv.py:build_large_layouts``'s chunks:
+    :func:`spmm` once a panel, on the panel's rows of ``b``, added into
+    its chunk's rows of one zeroed f32 C.  ``b`` must lie on the layouts'
+    device."""
+    c = torch.zeros(sum(cn for cn, _ in chunks), b.shape[1],
+                    dtype=torch.float32, device=b.device)
+    r0 = 0
+    for cn, panels in chunks:
+        for cb_off, layout in panels:
+            c0 = cb_off * LANE
+            c[r0 : r0 + cn] += spmm(layout, b[c0 : c0 + layout.ncols])
+        r0 += cn
+    return c
+
+
+def spmm_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
+                       values: torch.Tensor | None, b: torch.Tensor,
+                       tile: int = CSR_TILE) -> torch.Tensor:
+    """``A @ B`` in plain PyTorch, split as the CSR-form kernel splits
+    it: each share of ``tile`` merge items sums its rows' products
+    ``values * B[colinds]`` (every value 1 when ``values`` is None), a row
+    cut by a share's edge in one part a share (``ops/spmv.py:csr_parts``);
+    then the parts are added into their rows, which is what the kernel's
+    carries do.  Entries go in chunks (:func:`scatter_rows`).  Returns f32
+    ``(nrows, n)`` on the tensors' device."""
+    dev = colinds.device
+    nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
+    b = b.to(device=dev, dtype=torch.float32)
+    c = torch.zeros(nrows, b.shape[1], dtype=torch.float32, device=dev)
+    if nnz == 0 or b.shape[1] == 0:
+        return c
+    vals = (torch.ones(nnz, dtype=torch.float32, device=dev) if values is None
+            else values.to(torch.float32))
+    part, rows = csr_parts(rowptrs, nnz, tile)
+    sums = torch.zeros(rows.shape[0], b.shape[1], dtype=torch.float32,
+                       device=dev)
+    scatter_rows(sums, part, colinds.long(), vals, b)
+    return c.index_add_(0, rows, sums)
+
+
+def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
+             values: torch.Tensor | None, b: torch.Tensor) -> torch.Tensor:
+    """``A @ B`` for a matrix in CSR form, read from its own tensors:
+    ``rowptrs`` int32 or int64 (``rowptrs[0] == 0``, the last the entry
+    count), ``colinds`` int32, ``values`` f32 or None (every value 1),
+    contiguous on one device with ``b`` (``(ncols, n)``; another dtype is
+    cast to f32); returns f32 ``(nrows, n)``.
+
+    On CUDA tensors ``csrc/spmm_csr.cu`` runs: one launch over the shares
+    and one that adds the carries of rows cut by a share's edge, counted
+    once in :data:`csr_launches`; B is read as it is (16 B loads where its
+    rows allow, else scalar ones), with no padded copy; a build or launch
+    failure raises.  On CPU tensors :func:`spmm_csr_reference` runs."""
+    global csr_launches
+    check_csr_operands(rowptrs, colinds, values, b, x_dim=2)
+    dev = colinds.device
+    if dev.type == "cpu":
+        return spmm_csr_reference(rowptrs, colinds, values, b)
+    if dev.type != "cuda":
+        raise ValueError(f"spmm_csr runs on CPU or CUDA tensors, not {dev}")
+    b = b.to(torch.float32)
+    nrows, nnz, n = rowptrs.shape[0] - 1, colinds.shape[0], b.shape[1]
+    if b.stride(1) != 1 or b.stride(0) < n:
+        b = b.contiguous()
+    if n >= 1 << 31:
+        raise ValueError(f"B: {n} columns, more than the kernel indexes")
+    if any(t.data_ptr() % 4 for t in (rowptrs, colinds, values, b)
+           if t is not None):
+        raise ValueError("rowptrs, colinds, values and B must be 4 B aligned")
+    if nnz == 0 or n == 0:
+        return torch.zeros(nrows, n, dtype=torch.float32, device=dev)
+    c = torch.empty(nrows, n, dtype=torch.float32, device=dev)  # every row written
+    vec = n % 4 == 0 and b.stride(0) % 4 == 0 and b.data_ptr() % 16 == 0
+    n_shares = -(-(nrows + nnz) // CSR_TILE)
+    carry = torch.empty(n_shares, n, dtype=torch.float32, device=dev)
+    carry_row = torch.empty(n_shares, dtype=torch.int32, device=dev)
+    from . import _cuda
+
+    with torch.cuda.device(dev):
+        _cuda.spmm_csr(rowptrs, colinds, values, b, c, carry, carry_row, vec)
+    csr_launches += 1
     return c

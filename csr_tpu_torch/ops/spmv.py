@@ -34,6 +34,7 @@ Micro-block SpMV (counterpart of :func:`csr_tpu.ops.spmv.spmv`).
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -321,6 +322,22 @@ def csr_shares(rowptrs: torch.Tensor, nnz: int, tile: int = CSR_TILE):
     return rows, d - rows
 
 
+def csr_parts(rowptrs: torch.Tensor, nnz: int, tile: int):
+    """The parts of the CSR-form kernels' split (:func:`csr_shares` in
+    shares of ``tile`` items): a part is a run of entries of one row in
+    one share.  Returns ``(part, rows)``: the part of each entry and the
+    row of each part, int64 on the tensors' device (``nnz`` > 0)."""
+    dev = rowptrs.device
+    nrows = rowptrs.shape[0] - 1
+    _, k = csr_shares(rowptrs, nnz, tile)
+    share = torch.searchsorted(k[1:], torch.arange(nnz, device=dev), right=True)
+    row = torch.repeat_interleave(torch.arange(nrows, device=dev),
+                                  torch.diff(rowptrs.long()), output_size=nnz)
+    new = torch.ones(nnz, dtype=torch.bool, device=dev)
+    new[1:] = (row[1:] != row[:-1]) | (share[1:] != share[:-1])
+    return torch.cumsum(new, 0) - 1, row[new]
+
+
 def spmv_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
                        values: torch.Tensor | None, x: torch.Tensor,
                        tile: int = CSR_TILE) -> torch.Tensor:
@@ -328,9 +345,9 @@ def spmv_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
     it: the products ``values * x[colinds]`` (every value 1 when
     ``values`` is None); each share of :func:`csr_shares`'s sums its
     rows' products (a row inside one share whole, a row cut by a share's
-    edge in one part a share); then the parts are added into their rows,
-    which is the fix-up the kernel makes with atomics.  Returns f32 on
-    the tensors' device."""
+    edge in one part a share, :func:`csr_parts`); then the parts are
+    added into their rows, which is the fix-up the kernel makes with
+    atomics.  Returns f32 on the tensors' device."""
     dev = colinds.device
     nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
     y = torch.zeros(nrows, dtype=torch.float32, device=dev)
@@ -340,21 +357,17 @@ def spmv_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
     p = x[colinds.long()]
     if values is not None:
         p = values.to(torch.float32) * p
-    _, k = csr_shares(rowptrs, nnz, tile)
-    idx = torch.arange(nnz, device=dev)
-    share = torch.searchsorted(k[1:], idx, right=True)
-    row = torch.repeat_interleave(torch.arange(nrows, device=dev),
-                                  torch.diff(rowptrs.long()), output_size=nnz)
-    # a part is a run of entries of one row in one share
-    new = torch.ones(nnz, dtype=torch.bool, device=dev)
-    new[1:] = (row[1:] != row[:-1]) | (share[1:] != share[:-1])
-    part = torch.cumsum(new, 0) - 1
-    sums = torch.zeros(int(part[-1]) + 1, dtype=torch.float32, device=dev)
+    part, rows = csr_parts(rowptrs, nnz, tile)
+    sums = torch.zeros(rows.shape[0], dtype=torch.float32, device=dev)
     sums.index_add_(0, part, p)
-    return y.index_add_(0, row[new], sums)
+    return y.index_add_(0, rows, sums)
 
 
-def _check_csr_operands(rowptrs, colinds, values, x, out) -> None:
+def check_csr_operands(rowptrs, colinds, values, x, out=None,
+                       x_dim: int = 1) -> None:
+    """Raise ValueError unless the CSR tensors and the operand ``x`` (of
+    ``x_dim`` dimensions; ``out`` the optional SpMV accumulator) are as
+    the CSR-form kernels take them."""
     dev = colinds.device
     nrows = rowptrs.shape[0] - 1 if rowptrs.dim() == 1 else -1
     if rowptrs.dtype not in (torch.int32, torch.int64) or nrows < 0:
@@ -367,8 +380,8 @@ def _check_csr_operands(rowptrs, colinds, values, x, out) -> None:
                                or tuple(values.shape) != tuple(colinds.shape)):
         raise ValueError(f"values: expected float32 {tuple(colinds.shape)}, "
                          f"got {values.dtype} {tuple(values.shape)}")
-    if x.dim() != 1:
-        raise ValueError(f"x: expected 1-D, got {tuple(x.shape)}")
+    if x.dim() != x_dim:
+        raise ValueError(f"x: expected {x_dim}-D, got {tuple(x.shape)}")
     if out is not None and (out.shape != (nrows,) or out.dtype != torch.float32):
         raise ValueError(f"out: expected float32 ({nrows},), got {out.dtype} "
                          f"{tuple(out.shape)}")
@@ -396,7 +409,7 @@ def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
     counted in :data:`csr_launches`; a build or launch failure raises.  On
     CPU tensors :func:`spmv_csr_reference` runs."""
     global csr_launches
-    _check_csr_operands(rowptrs, colinds, values, x, out)
+    check_csr_operands(rowptrs, colinds, values, x, out)
     dev = colinds.device
     if dev.type == "cpu":
         y = spmv_csr_reference(rowptrs, colinds, values, x)
@@ -420,16 +433,29 @@ def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
     return y
 
 
+@dataclass(frozen=True)
+class CsrForm:
+    """A matrix's CSR tensors as :func:`spmv_csr` reads them, for
+    :func:`product` (a plain class, not a pytree node: ``torch.func``
+    passes it through as one argument)."""
+
+    rowptrs: torch.Tensor
+    colinds: torch.Tensor
+    values: torch.Tensor | None
+
+
 class _Product(torch.autograd.Function):
-    """:func:`spmv` or :func:`spmv_large` with a vmap rule (see
-    :func:`product`).  It has no backward, as the JAX package's Pallas
-    SpMV has none: the ``cuda`` backend refuses a product that would need
-    one before it gets here."""
+    """:func:`spmv`, :func:`spmv_large` or :func:`spmv_csr` with a vmap
+    rule (see :func:`product`).  It has no backward, as the JAX package's
+    Pallas SpMV has none: the ``cuda`` backend refuses a product that
+    would need one before it gets here."""
 
     @staticmethod
     def forward(a, ncols, x, op):
         if isinstance(a, MicroBlockLayout):
             return spmv(a, x)
+        if isinstance(a, CsrForm):
+            return spmv_csr(a.rowptrs, a.colinds, a.values, x)
         return spmv_large(a, ncols, x)
 
     @staticmethod
@@ -438,7 +464,7 @@ class _Product(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        raise RuntimeError("the micro-block SpMV has no backward: "
+        raise RuntimeError("the SpMV kernels have no backward: "
                            "differentiate on the torch backend")
 
     @staticmethod
@@ -449,33 +475,32 @@ class _Product(torch.autograd.Function):
 
         # B = X^T: column j of B is operand j, whichever axis the batch is on
         b = x.movedim(in_dims[2], 1)
+        if isinstance(a, CsrForm):
+            trace(op, route="csr", shape=(a.rowptrs.shape[0] - 1, ncols),
+                  n=b.shape[1])
+            return spmm_op.spmm_csr(a.rowptrs, a.colinds, a.values, b), 1
         if isinstance(a, MicroBlockLayout):
             trace(op, route="kernel", shape=(a.nrows, a.ncols), n=b.shape[1])
             return spmm_op.spmm(a, b), 1
-        c = torch.zeros(sum(cn for cn, _ in a), b.shape[1],
-                        dtype=torch.float32, device=b.device)
-        trace(op, route="kernel", shape=tuple(c.shape[:1]) + (ncols,),
+        trace(op, route="kernel", shape=(sum(cn for cn, _ in a), ncols),
               n=b.shape[1])
-        r0 = 0
-        for cn, panels in a:
-            for cb_off, layout in panels:
-                c0 = cb_off * LANE
-                c[r0 : r0 + cn] += spmm_op.spmm(layout, b[c0 : c0 + layout.ncols])
-            r0 += cn
-        return c, 1
+        return spmm_op.spmm_large(a, b), 1
 
 
 def product(a, x: torch.Tensor, ncols: int | None = None,
             op: str = "mult_vec") -> torch.Tensor:
-    """``A @ x`` on the SpMV kernel: ``a`` is a layout (:func:`spmv`) or
+    """``A @ x`` on an SpMV kernel: ``a`` is a layout (:func:`spmv`),
     :func:`build_large_layouts`'s chunks of a matrix of ``ncols`` columns
-    (:func:`spmv_large`).  Returns f32 on the layouts' device.
+    (:func:`spmv_large`) or a :class:`CsrForm` (:func:`spmv_csr`).
+    Returns f32 on the tensors' device.
 
     Inside a ``torch.func`` transform the call goes through an op with a
-    vmap rule: ``torch.func.vmap`` over ``x`` runs one SpMM launch a
-    layout on the batch (``B = X^T``), and no SpMV launch, and emits one
-    ``op`` trace event (route ``kernel``, ``shape`` the product's rows and
-    columns, ``n`` the batch), as ``mult_dense`` does.  Outside one it
+    vmap rule: ``torch.func.vmap`` over ``x`` runs SpMM on the batch
+    (``B = X^T``) and no SpMV launch: one micro-block SpMM launch a
+    layout (route ``kernel``), or one CSR-form SpMM (``spmm_csr``, route
+    ``csr``) with no layout built; it emits one ``op`` trace event
+    (``shape`` the product's rows and columns, ``n`` the batch), as
+    ``mult_dense`` does.  Outside one it
     runs the op's forward directly: the op's dispatch added 0.035 and
     0.059 ms of host time a call (medians of two runs), and every chained
     flagship product through the op was slower than every one direct, on

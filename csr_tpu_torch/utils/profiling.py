@@ -4,7 +4,7 @@ Timing on the card (counterpart of :mod:`csr_tpu.utils.profiling`).
 :func:`timed_chained` times chained iterations with CUDA events,
 :func:`timed_graph` the same chain captured once in a CUDA graph and
 replayed, and :func:`timed` single calls.  :func:`launch_counts` reads
-the four kernel wrappers' launch counts.  :func:`peak_gbps` gives a card's published
+the five kernel wrappers' launch counts.  :func:`peak_gbps` gives a card's published
 memory bandwidth from its device name, :func:`peak_f32_tflops` its f32
 rate outside the tensor cores, and :func:`least_ms` the least time the
 card could take for given bytes and operations.  :class:`Roofline`
@@ -94,18 +94,19 @@ def timed_chained(step, x0: torch.Tensor, iters: int = 300, reps: int = 3) -> fl
 
 
 def launch_counts(reset: bool = False) -> dict:
-    """The launch counts of the four kernel wrappers (``ops/spmv.py``'s
+    """The launch counts of the five kernel wrappers (``ops/spmv.py``'s
     ``spmv``, ``spmv_bucket`` and ``spmv_csr``, ``ops/spmm.py``'s
-    ``spmm``), set to 0 first with ``reset``."""
+    ``spmm`` and ``spmm_csr``), set to 0 first with ``reset``."""
     from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
 
     if reset:
         spmv_op.launches = spmm_op.launches = spmv_op.bucket_launches = 0
-        spmv_op.csr_launches = 0
+        spmv_op.csr_launches = spmm_op.csr_launches = 0
     return {"spmv_microblock": spmv_op.launches,
             "spmm_microblock": spmm_op.launches,
             "spmv_bucket": spmv_op.bucket_launches,
-            "spmv_csr": spmv_op.csr_launches}
+            "spmv_csr": spmv_op.csr_launches,
+            "spmm_csr": spmm_op.csr_launches}
 
 
 def timed_graph(step, x0: torch.Tensor, iters: int = 300, reps: int = 3):

@@ -178,6 +178,8 @@ def test_spmm_slice_on_card(cuda_device, monkeypatch):
     from csr_tpu_torch.kernels import cuda as cuda_k
 
     monkeypatch.setattr(cuda_k, "_DENSIFY_CROSSOVER", ((1, 1.1),))  # the kernel route
+    # the micro-block kernel route: this small layout is mostly padding
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, float("inf")),))
     a = random_matrix(260, 390, 0.04, seed=5)
     m = random_matrix(390, 200, 0.05, seed=16, big_group=False)
     c = CSR.from_scipy(a, device=cuda_device)
@@ -545,7 +547,8 @@ def test_graph_capture_of_mult_vec_on_card(cuda_device):
         # the warm-up step, the capture
         assert profiling.launch_counts()[kernel] == before + 1 + 5
         assert captured == {"spmv_microblock": 0, "spmm_microblock": 0,
-                            "spmv_bucket": 0, "spmv_csr": 0, kernel: 5}
+                            "spmv_bucket": 0, "spmv_csr": 0, "spmm_csr": 0,
+                            kernel: 5}
         v = x0
         for _ in range(4):
             v = step(v)
@@ -696,3 +699,74 @@ def test_csr_routed_mult_vec_is_one_launch_on_card(cuda_device):
     spmv_share(y, a.astype(np.float64) @ x, a, x)
     at = a.T.tocsr()
     spmv_share(yt, at.astype(np.float64) @ xt, at, xt)
+
+
+@pytest.mark.parametrize("offset,ptr_dtype,structure_only,b_offset,b_pad", [
+    ((0, 0), torch.int32, False, 0, 0), ((1, 1), torch.int64, False, 0, 4),
+    ((2, 0), torch.int32, True, 1, 0), ((3, 3), torch.int64, False, 3, 3)])
+@pytest.mark.parametrize("n", [1, 3, 50, 128, 257])
+@pytest.mark.parametrize("case", ["random", "long row"])
+def test_spmm_csr_kernel_matches_reference_on_card(case, n, offset, ptr_dtype,
+                                                   structure_only, b_offset,
+                                                   b_pad, cuda_device):
+    """The CSR-form SpMM kernel against spmm_csr_reference and scipy: int32
+    and int64 row pointers, colinds and values off a 16 B boundary,
+    structure-only, and a B off a 16 B boundary or with padded rows (its
+    16 B path where n % 4 == 0 and B's rows allow, else the scalar one);
+    a row of 4.4 shares (the "long row" case) and empty rows."""
+    a = (random_matrix(3000, 5000, 0.004, seed=87, big_group=False)
+         if case == "random" else _long_row_matrix(88))
+    if structure_only:
+        a = sps.csr_matrix((np.ones(a.nnz, np.float32), a.indices, a.indptr),
+                           shape=a.shape)
+    rp, ci, v = _csr_views(a, offset, ptr_dtype, cuda_device, structure_only)
+    b = np.random.default_rng(89).uniform(-1, 1, (a.shape[1], n)).astype(np.float32)
+    buf = torch.zeros(a.shape[1] * (n + b_pad) + b_offset, device=cuda_device)
+    bd = buf[b_offset:].view(a.shape[1], n + b_pad)[:, :n]
+    bd.copy_(torch.from_numpy(b))
+    before = spmm.csr_launches
+    c = spmm.spmm_csr(rp, ci, v, bd)
+    c_ref = spmm.spmm_csr_reference(rp, ci, v, bd)
+    torch.cuda.synchronize()
+    assert spmm.csr_launches == before + 1
+    assert c.shape == (a.shape[0], n) and c.dtype == torch.float32
+    assert_product_close(c.cpu().numpy(), c_ref.cpu().numpy())
+    assert_product_close(c.cpu().numpy(), a.astype(np.float64) @ b)
+
+
+def test_spmm_csr_kernel_inf_reaches_only_its_rows_on_card(cuda_device):
+    a = _long_row_matrix(90)
+    b = np.random.default_rng(91).uniform(-1, 1, (9000, 50)).astype(np.float32)
+    b[5, 1] = np.inf
+    rp, ci, v = _csr_views(a, (0, 0), torch.int32, cuda_device)
+    c = spmm.spmm_csr(rp, ci, v, torch.from_numpy(b).to(cuda_device)).cpu().numpy()
+    rows, cols = np.nonzero(~np.isfinite(c))
+    uses = np.flatnonzero(a[:, [5]].toarray()[:, 0] != 0)
+    assert np.array_equal(np.unique(rows), uses) and set(cols.tolist()) == {1}
+
+
+def test_csr_routed_mult_dense_is_one_launch_on_card(cuda_device):
+    """A hypersparse matrix's mult_dense takes the CSR-form SpMM kernel in
+    one launch and builds no micro-block layout; a vmapped mult_vec of it
+    is one CSR-form SpMM launch too; both match scipy."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.utils.profiling import launch_counts
+
+    rng = np.random.default_rng(92)
+    a = sps.random(4096, 1 << 20, 12 / (1 << 20), format="csr", dtype=np.float32,
+                   random_state=rng)
+    c = CSR.from_scipy(a, device=cuda_device)
+    assert cuda_k._spmm_route(c, 50) == "csr"
+    b = rng.uniform(-1, 1, ((1 << 20), 50)).astype(np.float32)
+    X = rng.uniform(-1, 1, (3, 1 << 20)).astype(np.float32)
+    with use_kernel("cuda"):
+        launch_counts(reset=True)
+        d = c.mult_dense(torch.from_numpy(b).to(cuda_device))
+        Y = torch.func.vmap(lambda v: c.mult_vec(v))(torch.from_numpy(X).to(cuda_device))
+        counts = launch_counts()
+    assert {k: m for k, m in counts.items() if m} == {"spmm_csr": 2}, counts
+    for attr in ("_mb_layout_cache", "_mb_large_cache"):
+        assert getattr(c, attr, None) is None, attr
+    assert_product_close(d.cpu().numpy(), a.astype(np.float64) @ b)
+    for k in range(3):
+        spmv_share(Y[k], a.astype(np.float64) @ X[k], a, X[k])

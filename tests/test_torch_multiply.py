@@ -105,6 +105,10 @@ def test_slice_matches_reference(kernel, route, structure_only,
     assert (c.values is None) == structure_only
     if route is not None:
         monkeypatch.setattr(cuda_k, "_DENSIFY_CROSSOVER", ((1, ROUTES[route]),))
+    if route == "kernel":
+        # its layout is mostly padding (over SpMM's CSR-form crossover):
+        # hold it on the micro-block kernel's route, which this checks
+        monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, float("inf")),))
     with kernels.use_kernel(kernel):
         d = c.mult_dense(b)
         p = c.multiply(_port(_ref(m)))
@@ -267,8 +271,9 @@ def test_wide_matrix_stays_on_kernel(routes):
 
 
 def test_out_of_packing_range_goes_to_torch(routes):
-    """SpMM of a matrix past the packer's 15-bit rb runs on the torch
-    backend (SpMV of it raises, naming spmv_large)."""
+    """SpMM of a matrix past the packer's 15-bit rb no longer runs on the
+    torch backend: this one, whose layout would be all padding, takes the
+    CSR-form kernel's route (its plain version on the CPU)."""
     nrows = 32768 * 128
     rp = np.zeros(nrows + 1, np.int64)
     rp[-2:] = [0, 1]  # one entry, in the last row
@@ -277,7 +282,7 @@ def test_out_of_packing_range_goes_to_torch(routes):
     b = np.arange(6, dtype=np.float32).reshape(3, 2)
     with kernels.use_kernel("cuda"):
         d = tall.mult_dense(b)
-    assert routes == [("mult_dense", "torch")]
+    assert routes == [("mult_dense", "csr")]
     assert d.shape == (nrows, 2) and torch.equal(d[-1], torch.tensor([6.0, 7.5]))
     assert not d[:-1].any()
 

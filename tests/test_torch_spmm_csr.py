@@ -1,0 +1,525 @@
+"""The CSR-form SpMM (``ops/spmm.py:spmm_csr``, kernel
+``csrc/spmm_csr.cu``), its route in ``kernels/cuda.py``, and the two
+repaired faults of the ``cuda`` backend (caches that outlived an in-place
+edit; the route statistic's memory), on the CPU: ``spmm_csr_reference``
+(the kernel's split into shares of merge items, a part a row and share,
+and the carries) and the routed ``CSR.mult_dense`` / ``multiply`` against
+``csr_tpu``'s products under ``pallas`` (interpret mode, as the JAX
+package's tests run it) and scipy, within ``tests/test_mult_dense.py``'s
+bound (rtol 5e-4, atol 1e-4 times the largest |result|,
+``torch_util.assert_product_close``) and ``util.assert_spmv_close``, both
+unchanged."""
+
+import pathlib
+import re
+
+import numpy as np
+import pytest
+import scipy.sparse as sps
+import torch
+from hypothesis import given, settings, strategies as st
+
+import csr_tpu
+import csr_tpu.kernels as ref_kernels
+import csr_tpu_torch.kernels as kernels
+from csr_tpu_torch import CSR
+from csr_tpu_torch.kernels import cuda as cuda_k, torch as torch_k
+from csr_tpu_torch.ops import _cuda, microblock as mb, spmm, spmv
+
+from torch_util import Scipy, assert_product_close, power_law
+from util import assert_spmv_close
+
+SHAPE = (256, 1 << 16)
+WIDTHS = (1, 3, 50)
+
+
+def _cases():
+    nrows, ncols = SHAPE
+    long_row = np.full(nrows, 3)
+    long_row[7] = 5_000  # about five shares of 1024 merge items
+    return {"hypersparse": power_law(nrows, ncols, np.full(nrows, 12), 21),
+            "thin rows": power_law(nrows, ncols, np.full(nrows, 2), 22),
+            "empty rows": power_law(nrows, ncols,
+                                    np.where(np.arange(nrows) % 5 == 0, 9, 0), 23),
+            "long row": power_law(nrows, ncols, long_row, 24)}
+
+
+CASES = _cases()
+
+
+def _structure(a):
+    return sps.csr_matrix((np.ones(a.nnz, np.float32), a.indices, a.indptr),
+                          shape=a.shape)
+
+
+def _port(a, ptr_dtype=torch.int32, structure_only=False):
+    """The port's CSR of scipy ``a`` on the CPU, row pointers of
+    ``ptr_dtype`` (tensors, kept as given)."""
+    return CSR(a.shape[0], a.shape[1], a.nnz,
+               torch.from_numpy(a.indptr.astype(np.int64)).to(ptr_dtype),
+               torch.from_numpy(a.indices.astype(np.int32)),
+               None if structure_only else torch.from_numpy(a.data.astype(np.float32)),
+               _cast=False)
+
+
+def _operand(a, n, seed):
+    return np.random.default_rng(seed).uniform(-1, 1, (a.shape[1], n)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pallas_results():
+    """csr_tpu's mult_dense of every case (and of the hypersparse one
+    structure-only) under pallas (interpret mode), at every width, with
+    the seeded operands."""
+    out = {}
+    for i, (name, a) in enumerate(CASES.items()):
+        for so in (False, True) if name == "hypersparse" else (False,):
+            ref = csr_tpu.CSR(a.shape[0], a.shape[1], a.nnz, a.indptr, a.indices,
+                              None if so else a.data)
+            for n in WIDTHS:
+                b = _operand(a, n, 60 + i)
+                with ref_kernels.use_kernel("pallas"):
+                    out[name, so, n] = b, np.asarray(ref.mult_dense(b))
+    return out
+
+
+@pytest.fixture
+def routes():
+    """The routes the cuda kernel reports, as (event, route) pairs."""
+    seen = []
+    kernels._listeners.append(
+        lambda e, f: seen.append((e, f["route"])) if "route" in f else None)
+    yield seen
+    kernels._listeners.pop()
+
+
+@pytest.mark.parametrize("ptr_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", WIDTHS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reference_matches_pallas(case, n, ptr_dtype, pallas_results):
+    """The plain version, at the kernel's share and at one of 7 items
+    (every row cut), against csr_tpu and scipy."""
+    a = CASES[case]
+    b, want = pallas_results[case, False, n]
+    c = _port(a, ptr_dtype)
+    for tile in (spmm.CSR_TILE, 7):
+        got = spmm.spmm_csr_reference(c.rowptrs, c.colinds, c.values,
+                                      torch.from_numpy(b), tile)
+        assert got.dtype == torch.float32 and got.shape == (a.shape[0], n)
+        assert_product_close(got.numpy(), want)
+        assert_product_close(got.numpy(), a.astype(np.float64) @ b)
+
+
+@pytest.mark.parametrize("case,structure_only",
+                         [(c, False) for c in sorted(CASES)] + [("hypersparse", True)])
+def test_routed_mult_dense_matches_pallas(case, structure_only, pallas_results,
+                                          routes):
+    """CSR.mult_dense on the cuda backend takes the CSR-form route at
+    every width (mostly padding in the micro-block layout) and builds no
+    layout."""
+    a = CASES[case]
+    c = _port(a, torch.int64, structure_only)
+    with kernels.use_kernel("cuda"):
+        got = {n: c.mult_dense(pallas_results[case, structure_only, n][0])
+               for n in WIDTHS}
+    assert routes == [("mult_dense", "csr")] * len(WIDTHS)
+    ref = _structure(a) if structure_only else a
+    for n, d in got.items():
+        b, want = pallas_results[case, structure_only, n]
+        assert d.dtype == torch.float32 and d.shape == (a.shape[0], n)
+        assert_product_close(d.numpy(), want)
+        assert_product_close(d.numpy(), ref.astype(np.float64) @ b)
+    for attr in ("_mb_layout_cache", "_mb_large_cache"):
+        assert getattr(c, attr, None) is None, attr
+
+
+def flagship_like():
+    """327 uniform entries a row, as the flagship has, at 4096^2."""
+    rng = np.random.default_rng(53)
+    rp = np.arange(4097, dtype=np.int64) * 327
+    cols = rng.integers(0, 4096, 4096 * 327).astype(np.int32)
+    return sps.csr_matrix((rng.standard_normal(len(cols)).astype(np.float32),
+                           cols, rp), shape=(4096, 4096))
+
+
+def test_route_picks_spmm_csr(monkeypatch):
+    """``_spmm_route`` follows ``_spmm_crossover`` (layout bytes a stored
+    entry): the CSR form for a hypersparse matrix, the micro-block kernel
+    for a flagship-like one; past a monkeypatched MAX_RB (the packer's row
+    windows) the hypersparse one still takes the CSR form, whose route
+    packs nothing."""
+    hyper = _port(CASES["hypersparse"])
+    flag = _port(flagship_like())
+    for n in (1, 50, 256, 8192):
+        assert cuda_k._spmm_route(hyper, n) == "csr"
+        assert cuda_k._spmm_route(flag, n) == "kernel"
+    monkeypatch.setattr(mb, "MAX_RB", 1)
+    assert cuda_k._needs_large(*SHAPE)
+    fresh = _port(CASES["hypersparse"])
+    assert cuda_k._spmm_route(fresh, 50) == "csr"
+    b = _operand(CASES["hypersparse"], 50, 70)
+    with kernels.use_kernel("cuda"):
+        d = fresh.mult_dense(b)
+    assert_product_close(d.numpy(), CASES["hypersparse"].astype(np.float64) @ b)
+    assert getattr(fresh, "_mb_large_cache", None) is None
+
+
+def test_large_route_is_spmm_a_panel(monkeypatch, routes):
+    """Past the window budget a matrix that is not CSR-routed runs the
+    micro-block SpMM once a (chunk, panel) layout (``spmm_large``), not
+    the torch backend."""
+    monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 3)
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, float("inf")),))
+    a = flagship_like()[:1000]
+    c = _port(a)
+    calls = []
+    real = spmm.spmm
+    monkeypatch.setattr(spmm, "spmm", lambda lay, b: calls.append(lay) or real(lay, b))
+    b = _operand(a, 3, 71)
+    with kernels.use_kernel("cuda"):
+        d = c.mult_dense(b)
+    assert routes == [("mult_dense", "kernel")]
+    panels = sum(len(p) for _, p in cuda_k._cached_large(c, False))
+    assert len(calls) == panels > 1
+    assert_product_close(d.numpy(), a.astype(np.float64) @ b)
+
+
+def test_f32_spmm_runs_no_scatter_rows(monkeypatch, routes):
+    """f32 SpMM and SpGEMM's dense leg on the cuda backend never reach the
+    torch backend's product: ``scatter_rows`` runs only inside the
+    CSR-form kernel's plain version (which the wrapper takes for CPU
+    tensors alone), on each route."""
+    callers = []
+    real = spmm.scatter_rows
+
+    def scatter(*args):
+        import sys
+
+        callers.append(sys._getframe(1).f_code.co_name)
+        return real(*args)
+
+    monkeypatch.setattr(spmm, "scatter_rows", scatter)
+    monkeypatch.setattr(torch_k, "mult_dense", None)
+    monkeypatch.setattr(torch_k, "_spgemm_dense", None)
+    a = CASES["hypersparse"][:, :4096]
+    m = sps.random(4096, 30, 0.05, format="csr", dtype=np.float32,
+                   random_state=np.random.default_rng(72))
+    b = _operand(a, 5, 72)
+    inf = float("inf")
+    # (SpMM's crossover, the densify crossover, the window budget): the
+    # CSR form, the micro-block kernel, its chunks and panels, dense
+    settings = [(((1, 0.0),), ((1, 2.0),), None), (((1, inf),), ((1, 2.0),), None),
+                (((1, inf),), ((1, 2.0),), 1), (((1, inf),), ((1, 0.0),), None)]
+    with kernels.use_kernel("cuda"):
+        for spmm_x, dense_x, windows in settings:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", spmm_x)
+                mp.setattr(cuda_k, "_DENSIFY_CROSSOVER", dense_x)
+                if windows:
+                    mp.setattr(cuda_k, "_LARGE_WINDOWS", windows)
+                c = _port(a)
+                assert_product_close(c.mult_dense(b).numpy(), a.astype(np.float64) @ b)
+                p = c.multiply(_port(m))
+                assert_product_close(p.to_scipy().toarray(), (a.astype(np.float64) @ m).toarray())
+    assert [r for _, r in routes] == ["csr", "csr", "kernel", "kernel", "kernel",
+                                      "kernel", "dense", "dense"]
+    assert set(callers) == {"spmm_csr_reference"}
+
+
+def test_spgemm_dense_leg_hypersparse_matches_csr_tpu(routes):
+    """``multiply`` of a hypersparse A densifies B and runs its sparse leg
+    on the CSR-form route; the product agrees with csr_tpu's under
+    pallas."""
+    a = CASES["hypersparse"]
+    m = sps.random(a.shape[1], 40, 2e-3, format="csr", dtype=np.float32,
+                   random_state=np.random.default_rng(73))
+    mt = sps.random(40, a.shape[1], 2e-3, format="csr", dtype=np.float32,
+                    random_state=np.random.default_rng(74))
+    ref = csr_tpu.CSR.from_scipy(a)
+    with ref_kernels.use_kernel("pallas"):
+        want = ref.multiply(csr_tpu.CSR.from_scipy(m)).to_scipy().toarray()
+        want_t = ref.multiply(csr_tpu.CSR.from_scipy(mt),
+                              transpose=True).to_scipy().toarray()
+    c = _port(a)
+    with kernels.use_kernel("cuda"):
+        got = c.multiply(_port(m)).to_scipy().toarray()
+        got_t = c.multiply(_port(mt), transpose=True).to_scipy().toarray()
+    assert routes == [("spgemm", "csr")] * 2
+    for g, w, e in ((got, want, a @ m), (got_t, want_t, a @ mt.T)):
+        assert_product_close(g, w)
+        assert_product_close(g, e.astype(np.float64).toarray())
+
+
+def test_split_cuts_rows_at_share_edges():
+    """The plain version is the same product at any share: rows cut at
+    many share edges (tiles of 1, 7 and 64 items) add up from their
+    parts; the kernel's share is CSR_TILE, its kWarps * kWarpItems."""
+    a = CASES["long row"]
+    c = _port(a)
+    b = torch.from_numpy(_operand(a, 3, 75))
+    want = a.astype(np.float64) @ b.numpy()
+    for tile in (1, 7, 64, spmm.CSR_TILE):
+        part, rows = spmv.csr_parts(c.rowptrs, a.nnz, tile)
+        assert int(part[-1]) + 1 == len(rows)
+        assert len(rows) > len(np.unique(rows.numpy())) or tile >= a.nnz
+        got = spmm.spmm_csr_reference(c.rowptrs, c.colinds, c.values, b, tile)
+        assert_product_close(got.numpy(), want)
+    src = pathlib.Path(_cuda.CSRC, "spmm_csr.cu").read_text()
+    warps = int(re.search(r"kWarps = (\d+);", src).group(1))
+    items = int(re.search(r"kWarpItems = (\d+);", src).group(1))
+    assert warps * items == spmm.CSR_TILE
+
+
+def test_inf_in_b_reaches_only_its_rows():
+    """An inf in B reaches only the rows whose entries gather its row, in
+    its column; every other entry agrees with scipy."""
+    a = CASES["empty rows"]
+    col = int(a.indices[a.indptr[5]])
+    b = _operand(a, 3, 76)
+    b[col, 1] = np.inf
+    uses = set(np.flatnonzero(a[:, [col]].toarray()[:, 0] != 0).tolist())
+    assert uses and len(uses) < a.shape[0]
+    c = _port(a)
+    got = spmm.spmm_csr_reference(c.rowptrs, c.colinds, c.values,
+                                  torch.from_numpy(b), 7).numpy()
+    rows, cols = np.nonzero(~np.isfinite(got))
+    assert set(rows.tolist()) == uses and set(cols.tolist()) == {1}
+    b0 = np.where(np.isfinite(b), b, 0).astype(np.float32)
+    want = a.astype(np.float64) @ b0
+    keep = np.isfinite(got)
+    np.testing.assert_allclose(got[keep], want[keep], rtol=5e-4, atol=1e-4)
+
+
+def test_wrapper_on_cpu_runs_plain_version():
+    a = CASES["hypersparse"]
+    c = _port(a)
+    b = torch.from_numpy(_operand(a, 3, 77))
+    before = spmm.csr_launches
+    want = spmm.spmm_csr_reference(c.rowptrs, c.colinds, c.values, b)
+    assert torch.equal(spmm.spmm_csr(c.rowptrs, c.colinds, c.values, b), want)
+    assert torch.equal(spmm.spmm_csr(c.rowptrs, c.colinds, c.values, b.double()),
+                       want)
+    assert spmm.csr_launches == before
+    assert "spmm_csr" not in _cuda._LIBS, "a CPU call built the CUDA kernel"
+
+
+def test_wrapper_rejects_bad_operands():
+    a = CASES["hypersparse"]
+    c = _port(a)
+    rp, ci, v = c.rowptrs, c.colinds, c.values
+    b = torch.zeros(a.shape[1], 2)
+    for bad in ((rp.to(torch.int16), ci, v, b), (rp, ci.long(), v, b),
+                (rp, ci, v.double(), b), (rp, ci, v[:-1], b),
+                (rp, ci, v, b[:, 0]), (rp, ci, v, b[None])):
+        with pytest.raises(ValueError):
+            spmm.spmm_csr(*bad)
+    with pytest.raises(ValueError):
+        spmm.spmm_csr(*[t.to("meta") for t in (rp, ci, v, b)])
+
+
+# -- fault A: in-place edits of a matrix's tensors ---------------------------
+
+EDIT = power_law(300, 4096, np.random.default_rng(80).integers(0, 12, 300), 80)
+
+
+@pytest.fixture(scope="module")
+def edited_reference():
+    """csr_tpu's three products of EDIT with its values doubled (built
+    from the new values), under pallas, and their operands."""
+    rng = np.random.default_rng(81)
+    x = rng.uniform(-1, 1, EDIT.shape[1]).astype(np.float32)
+    xt = rng.uniform(-1, 1, EDIT.shape[0]).astype(np.float32)
+    b = rng.uniform(-1, 1, (EDIT.shape[1], 6)).astype(np.float32)
+    a2 = EDIT * np.float32(2)
+    ref = csr_tpu.CSR.from_scipy(a2)
+    with ref_kernels.use_kernel("pallas"):
+        return (x, xt, b, a2, np.asarray(ref.mult_vec(x)),
+                np.asarray(ref.mult_vec_t(xt)), np.asarray(ref.mult_dense(b)))
+
+
+INF = float("inf")
+#: route: (_CSR_CROSSOVER, _SPMM_CSR_CROSSOVER, _LARGE_WINDOWS or None,
+#: _DENSIFY_CROSSOVER)
+EDIT_ROUTES = {
+    "microblock": (INF, ((1, INF),), None, ((1, 2.0),)),
+    "csr": (0.0, ((1, 0.0),), None, ((1, 2.0),)),
+    "large": (INF, ((1, INF),), 1, ((1, 2.0),)),
+    "dense": (INF, ((1, INF),), None, ((1, 0.0),)),
+}
+
+
+@pytest.mark.parametrize("route", sorted(EDIT_ROUTES))
+def test_inplace_edit_is_seen_on_every_route(route, edited_reference,
+                                             monkeypatch):
+    """After ``values.mul_(2)`` the cuda backend's mult_vec, mult_vec_t
+    and mult_dense, whose forms were cached by a first call on each
+    route, agree with csr_tpu built from the new values."""
+    x, xt, b, a2, want, want_t, want_d = edited_reference
+    spmv_x, spmm_x, windows, dense_x = EDIT_ROUTES[route]
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", spmv_x)
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", spmm_x)
+    monkeypatch.setattr(cuda_k, "_DENSIFY_CROSSOVER", dense_x)
+    if windows:
+        monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", windows)
+    c = CSR.from_scipy(EDIT, device="cpu")
+    with kernels.use_kernel("cuda"):
+        h = cuda_k.to_handle(c)
+        before = (cuda_k.mult_vec(h, torch.from_numpy(x)),
+                  cuda_k.mult_vec_t(h, torch.from_numpy(xt)),
+                  cuda_k.mult_dense(h, torch.from_numpy(b)))
+        c.values.mul_(2)
+        got = (cuda_k.mult_vec(h, torch.from_numpy(x)),
+               cuda_k.mult_vec_t(h, torch.from_numpy(xt)),
+               cuda_k.mult_dense(h, torch.from_numpy(b)))
+        # a fresh handle and the CSR method agree too
+        again = c.mult_vec(x)
+    assert not torch.allclose(before[0], got[0])
+    at = a2.T.tocsr()
+    assert_spmv_close(got[0].numpy(), want, Scipy(a2), x)
+    assert_spmv_close(again.numpy(), want, Scipy(a2), x)
+    assert_spmv_close(got[1].numpy(), want_t, Scipy(at), xt)
+    assert_product_close(got[2].numpy(), want_d)
+    assert_product_close(got[2].numpy(), a2.astype(np.float64) @ b)
+
+
+def test_cpu_matrix_copies_the_callers_arrays():
+    """A CPU matrix made of numpy arrays holds copies of them (as the JAX
+    package copies to its device): an in-place edit of its tensors leaves
+    the caller's arrays as they were, and its kept host copies are
+    dropped once the edit moves a tensor's version."""
+    m = EDIT.copy()
+    data = m.data.copy()
+    c = CSR.from_scipy(m, device="cpu")
+    d = CSR(m.shape[0], m.shape[1], m.nnz, m.indptr, m.indices.astype(np.int64),
+            m.data, device="cpu")
+    for csr in (c, d):
+        assert csr._kept_host() is not None
+        csr.values.mul_(3)
+        assert np.array_equal(m.data, data)
+    d.colinds.copy_(d.colinds.flip(0))  # an int32 tensor of int64 host arrays
+    assert d._kept_host() is None
+    assert np.array_equal(d.host_arrays()[1], m.indices[::-1])
+    assert np.allclose(c.to_scipy().data, 3 * data)
+
+
+def test_shards_and_statistic_follow_an_edit(monkeypatch):
+    """The row-shard list and the route statistic are keyed on the tensors'
+    versions as well: after an in-place edit the sharded product and the
+    route use the new tensors."""
+    monkeypatch.setattr(cuda_k, "max_nnz", 400)
+    a = EDIT
+    c = CSR.from_scipy(a, device="cpu")
+    x = np.random.default_rng(82).uniform(-1, 1, a.shape[1]).astype(np.float32)
+    with kernels.use_kernel("cuda"):
+        c.mult_vec(x)
+        shards = c._shard_cache[4]
+        cuda_k._layout_bytes_per_entry(c, False)
+        c.values.mul_(-1)
+        y = c.mult_vec(x)
+    assert c._shard_cache[4] is not shards and len(shards) > 1
+    assert_spmv_close(y.numpy(), -(a.astype(np.float64) @ x), Scipy(a), x)
+    stats = c._mb_stat_cache[3]
+    c.colinds.copy_(c.colinds // 256)  # every entry in the first window
+    cuda_k._layout_bytes_per_entry(c, False)
+    assert c._mb_stat_cache[3] is not stats
+    assert _microrows(c, False) == mb.estimate_microrows(
+        a.indptr, a.indices // 256, 256, a.shape[1])
+
+
+# -- fault B: the route statistic by chunks ----------------------------------
+
+def _microrows(c, transpose):
+    return round(cuda_k._layout_bytes_per_entry(c, transpose) * c.nnz
+                 / cuda_k._MICROROW_BYTES)
+
+
+@settings(max_examples=25, deadline=None)
+@given(nrows=st.integers(1, 700), ncols=st.integers(1, 3000),
+       density=st.floats(0.0005, 0.2), chunk=st.sampled_from([1, 5, 64, 999]),
+       seed=st.integers(0, 2**31 - 1))
+def test_statistic_by_chunks_matches_the_planner(nrows, ncols, density, chunk,
+                                                 seed):
+    """With chunks small enough that a matrix spans many, the route's
+    micro-row count still equals the host planner's at (256, 1), both
+    ways."""
+    a = sps.random(nrows, ncols, density, format="csr", dtype=np.float32,
+                   random_state=np.random.default_rng(seed))
+    if a.nnz == 0:
+        return
+    at = a.T.tocsr()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_k, "_STAT_CHUNK", chunk)
+        c = _port(a)
+        assert _microrows(c, False) == mb.estimate_microrows(a.indptr, a.indices, 256)
+        assert _microrows(c, True) == mb.estimate_microrows(at.indptr, at.indices, 256)
+
+
+@pytest.mark.parametrize("chunk", [1, 37, 1 << 23])
+def test_statistic_by_chunks_past_the_packing_range(chunk, monkeypatch):
+    """Past the window budget (``_LARGE_WINDOWS``, the packer's MAX_RB by
+    default, here 3: panels of 384, not a multiple of 256) the chunks'
+    edges lie on the transpose's panel-local windows, so the statistic
+    still counts spmv_large's chunk and panel layouts, the transpose's
+    too."""
+    monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 3)
+    monkeypatch.setattr(cuda_k, "_STAT_CHUNK", chunk)
+    a = power_law(1000, 2000, np.full(1000, 9), 4)
+    c = _port(a)
+    for t, b in ((False, a), (True, a.T.tocsr())):
+        assert cuda_k._needs_large(*b.shape)
+        chunks = spmv.build_large_layouts(b.shape[0], b.shape[1], b.indptr,
+                                          b.indices, b.data, max_windows=3)
+        assert _microrows(c, t) == sum(lay.n_microrows for _, p in chunks
+                                       for _, lay in p)
+
+
+def test_statistic_chunks_are_bounded(monkeypatch):
+    """Every chunk of the statistic holds at most ``_STAT_CHUNK`` entries
+    plus one 256-row window's, and its edges are panel starts or lie on
+    256-row windows counted from one."""
+    monkeypatch.setattr(cuda_k, "_STAT_CHUNK", 100)
+    a = power_law(3000, 500, np.random.default_rng(83).integers(0, 20, 3000), 83)
+    rp = torch.from_numpy(a.indptr.astype(np.int32))
+    for period in (384, 3000):
+        edges = cuda_k._stat_edges(rp, period)
+        assert edges[0] == 0 and edges[-1] == 3000 and edges == sorted(set(edges))
+        assert all(e % period % 256 == 0 or e == 3000 for e in edges)
+        window = max(int(a.indptr[min(r + 256, 3000)] - a.indptr[r])
+                     for r in range(0, 3000, 128))
+        assert max(np.diff(a.indptr[edges])) <= 100 + window
+        assert len(edges) > a.nnz // (100 + window)
+
+
+@pytest.mark.parametrize("large", [False, True])
+def test_statistic_splits_a_heavy_window(large, monkeypatch):
+    """A 256-row window of more than ``_STAT_CHUNK`` entries (a block of
+    dense rows; for the transpose, popular columns) is a chunk of its own,
+    counted by slices of at most ``_STAT_CHUNK`` entries, and the
+    statistic still equals the planner's count both ways (past a
+    monkeypatched window budget, spmv_large's chunk and panel layouts)."""
+    monkeypatch.setattr(cuda_k, "_STAT_CHUNK", 700)
+    if large:
+        monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 3)
+    a = power_law(900, 1500, np.random.default_rng(84).integers(0, 6, 900), 84).tolil()
+    a[300:420, :] = 1.0  # 180,000 entries in two windows
+    a[:, 7] = 2.0  # a popular column
+    a = a.tocsr()
+    c = _port(a)
+    sizes = []
+    bincount = torch.bincount
+    monkeypatch.setattr(torch, "bincount",
+                        lambda x, **kw: sizes.append(x.numel()) or bincount(x, **kw))
+    for t, b in ((False, a), (True, a.T.tocsr())):
+        if large:
+            chunks = spmv.build_large_layouts(b.shape[0], b.shape[1], b.indptr,
+                                              b.indices, b.data, max_windows=3)
+            want = sum(lay.n_microrows for _, p in chunks for _, lay in p)
+        else:
+            want = mb.estimate_microrows(b.indptr, b.indices, 256)
+        assert _microrows(c, t) == want
+    assert sizes and max(sizes) <= 700
+    # rows 300-420 lie in the windows [256, 512), or past the budget in
+    # [256, 384) and [384, 640) (panels of 384 rows): chunks of their own
+    period = 384 if large else 900
+    edges = cuda_k._stat_edges(torch.from_numpy(a.indptr.astype(np.int32)), period)
+    assert {256, 384, 640} <= set(edges) if large else {256, 512} <= set(edges)

@@ -26,25 +26,10 @@ from csr_tpu_torch import CSR
 from csr_tpu_torch.kernels import cuda as cuda_k
 from csr_tpu_torch.ops import _cuda, microblock as mb, spmv
 
-from torch_util import Scipy
+from torch_util import Scipy, power_law
 from util import assert_spmv_close
 
 SHAPE = (256, 1 << 16)
-
-
-def power_law(nrows, ncols, lengths, seed):
-    """Seeded f32 scipy CSR with the given row lengths, columns drawn by a
-    power law (exponent 0.6 over a permutation of the ids; repeats kept),
-    values standard normal."""
-    rng = np.random.default_rng(seed)
-    rowptr = np.zeros(nrows + 1, np.int64)
-    np.cumsum(lengths, out=rowptr[1:])
-    nnz = int(rowptr[-1])
-    cdf = np.cumsum(np.arange(1, ncols + 1, dtype=np.float64) ** -0.6)
-    rank = np.minimum(np.searchsorted(cdf / cdf[-1], rng.random(nnz)), ncols - 1)
-    cols = rng.permutation(ncols).astype(np.int32)[rank]
-    vals = rng.standard_normal(nnz).astype(np.float32)
-    return sps.csr_matrix((vals, cols, rowptr), shape=(nrows, ncols))
 
 
 def _cases():
@@ -317,24 +302,33 @@ def test_transpose_form_cached():
     assert c._csr_t_cache is None and c._mb_stat_cache is None
 
 
-def test_vmap_keeps_the_microblock_rule(monkeypatch):
-    """Under torch.func.vmap a CSR-routed matrix runs one SpMM a batch on
-    its micro-block layout, and no CSR-form or SpMV launch."""
+def test_vmap_on_the_csr_route_is_one_spmm_csr(monkeypatch):
+    """Under torch.func.vmap a CSR-routed matrix runs one CSR-form SpMM a
+    batch (``spmm_csr`` on ``X^T``, the transpose's cached CSR tensors for
+    ``mult_vec_t``), and no SpMV launch; no micro-block layout is built."""
     from csr_tpu_torch.ops import spmm as spmm_op
 
     calls = []
-    real_spmm = spmm_op.spmm
-    monkeypatch.setattr(spmm_op, "spmm",
-                        lambda lay, b: calls.append("spmm") or real_spmm(lay, b))
-    monkeypatch.setattr(spmv, "spmv_csr",
-                        lambda *a, **k: calls.append("spmv_csr"))
+    for mod, name in ((spmm_op, "spmm"), (spmm_op, "spmm_csr"), (spmv, "spmv"),
+                      (spmv, "spmv_csr")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real, **k:
+                            calls.append(_n) or _f(*a, **k))
     a = CASES["hypersparse"]
     c = _port(a, torch.int32)
-    X = torch.from_numpy(np.random.default_rng(54).uniform(
-        -1, 1, (3, a.shape[1])).astype(np.float32))
+    rng = np.random.default_rng(54)
+    X = torch.from_numpy(rng.uniform(-1, 1, (3, a.shape[1])).astype(np.float32))
+    Xt = torch.from_numpy(rng.uniform(-1, 1, (3, a.shape[0])).astype(np.float32))
     with kernels.use_kernel("cuda"):
         Y = torch.func.vmap(lambda v: c.mult_vec(v))(X)
-    assert calls == ["spmm"]
+        Yt = torch.func.vmap(lambda v: c.mult_vec_t(v))(Xt)
+    assert calls == ["spmm_csr", "spmm_csr"]
+    for attr in ("_mb_layout_cache", "_mb_layout_t_cache", "_mb_large_cache",
+                 "_mb_large_t_cache"):
+        assert getattr(c, attr, None) is None, attr
+    at = a.T.tocsr()
     for k in range(3):
         assert_spmv_close(Y[k].numpy(), a.astype(np.float64) @ X[k].numpy(),
                           Scipy(a), X[k].numpy())
+        assert_spmv_close(Yt[k].numpy(), at.astype(np.float64) @ Xt[k].numpy(),
+                          Scipy(at), Xt[k].numpy())

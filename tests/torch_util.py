@@ -39,6 +39,21 @@ def random_matrix(nrows, ncols, density, seed, big_group=True):
     return a.tocsr()
 
 
+def power_law(nrows, ncols, lengths, seed):
+    """Seeded f32 scipy CSR with the given row lengths, columns drawn by a
+    power law (exponent 0.6 over a permutation of the ids; repeats kept),
+    values standard normal."""
+    rng = np.random.default_rng(seed)
+    rowptr = np.zeros(nrows + 1, np.int64)
+    np.cumsum(lengths, out=rowptr[1:])
+    nnz = int(rowptr[-1])
+    cdf = np.cumsum(np.arange(1, ncols + 1, dtype=np.float64) ** -0.6)
+    rank = np.minimum(np.searchsorted(cdf / cdf[-1], rng.random(nnz)), ncols - 1)
+    cols = rng.permutation(ncols).astype(np.int32)[rank]
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    return sps.csr_matrix((vals, cols, rowptr), shape=(nrows, ncols))
+
+
 def assert_product_close(c, ref):
     """The JAX suite's tolerance for products (tests/test_mult_dense.py,
     tests/test_multiply.py): rtol 5e-4, atol 1e-4 times the largest
