@@ -10,7 +10,8 @@ needs a CUDA device and never falls back to the CPU: every matrix is
 built with no device named and must land on the card.
 
 1. Environment: the card's name and power limit, the CUDA version, each
-   kernel's build time and ptxas report.
+   kernel's build time and ptxas report (no spills in the SpMM, bucket
+   and CSR-form kernels).
 2. The SpMV kernel against its plain PyTorch version (``spmv_reference``)
    on the card, on small seeded layouts for window 128/256 x pair 1/2/4.
 3. SpMV main path at the flagship: ``CSR.mult_vec`` and ``CSR.mult_vec_t``
@@ -89,9 +90,9 @@ built with no device named and must land on the card.
     product (CUDA events), scipy's on the host, ``torch.sparse.mm`` of the
     same CSR tensors (timed only) and ESC's chunk budget at 2^24, 2^26
     and 2^28 terms.
-18. ``spmv_large`` (with ``_CSR_CROSSOVER`` set past every matrix for the
-    phase, so that the CSR-form route, which phase 21 takes at this
-    matrix, stays off): ``mult_vec`` of a 4,300,000 x 4,096 matrix with 8
+18. ``spmv_large`` (with ``_CSR_CROSSOVER`` and ``_CSR_CROSSOVER_LARGE``
+    set past every matrix for the phase, so that the CSR-form route, which
+    phase 21 takes at this matrix, stays off): ``mult_vec`` of a 4,300,000 x 4,096 matrix with 8
     power-law entries a row (past the packer's 32767 row windows: 2
     chunks, 2 launches) against scipy, each panel's launch against
     ``spmv_reference``, ``mult_vec_t`` on the in-range transpose; then
@@ -118,37 +119,51 @@ built with no device named and must land on the card.
     flagship, the MovieLens-25M shape, their transposes and a hypersparse
     matrix (65,536 rows, 12 entries a row over 1,048,576 columns):
     micro-rows, fill, bytes, the SpMV kernel against scipy and its
-    device time (``device_ms``, best of two rounds in opposite orders),
+    device time (``device_ms``, the median of three rounds in turns),
     and per 1024 micro-rows; at the flagship and the MovieLens shape the
     SpMM kernel (B x 256, x 50) and a D = 4 ring step on each window's
     pair-1 layout.  ``choose_layout``'s pick must take at most 1.10 times
-    the fastest variant's SpMV time at every matrix.
+    the fastest variant's SpMV time at every matrix (each time the median
+    of three rounds).
 21. The CSR-form SpMV kernel (``csrc/spmv_csr.cu``) and its route: the
     kernel against ``spmv_csr_reference`` and scipy on small seeded
     matrices (empty rows and an empty matrix, a row of 4.4 shares, int32
     and int64 row pointers, colinds and values off a 16 B boundary,
-    structure-only, ``out=``, an inf in x that some rows use); then at
+    structure-only, ``out=``, an inf in x that some rows use, and 3M rows
+    cut at share and block edges with rows of 60,000 and 4,096 entries),
+    each also into a y of NaN (every row written) and run twice (bitwise
+    equal); then at
     phase 20's hypersparse matrix, phase 18's 4.3M x 4,096, the flagship
-    and the MovieLens-25M shape (each both ways), a sweep of 131,072-row
+    and the MovieLens-25M shape (each both ways), 4.3M x 4,096 at 12, 16
+    and 24 a row (16.08, 12.06 and 8.62 B a stored entry past the
+    packer's range, ``mult_vec``), a sweep of 131,072-row
     power-law matrices (12 a row over 4,096 to 2^22 columns, 64 and 327
-    over 2^20) and the realistic hypersparse case (8,388,608 x 2^20,
+    over 2^20; 8-13 over 4,096 and 64 and 96 over 2^16 about the crossover)
+    and the realistic hypersparse case (8,388,608 x 2^20,
     ``min(zipf(2.4), 4096)`` entries a row, about 18.5M, both ways, never
     packed): the first ``mult_vec`` / ``mult_vec_t`` of a fresh CSR
     (route and call, host seconds) against scipy, its launches counted
     from 0 and held to its route (one CSR-form launch each way at the
     realistic case, no micro-block layout built on that route); the
     kernel against ``spmv_csr_reference``; device time (``device_ms``) of
-    the CSR-form kernel, the micro-block kernel (or ``spmv_large``) where
+    the CSR-form kernel (with the share edges cached on the matrix, as the
+    route hands them; its launches by name: the kernel and its carry pass,
+    no memset), the micro-block kernel (or ``spmv_large``) where
     it runs, ``torch.sparse_csr_tensor(...) @ x`` and the plain version,
-    beside the CSR bound; bytes a stored entry of both forms; the route's
-    pick within 1.10 times the faster kernel.
+    beside the CSR bound; at the hypersparse matrix a call without edges
+    (the kernel's search) against ``csr_shares`` first; bytes a stored
+    entry of both forms; the route's pick within 1.10 times the faster
+    kernel; the time ratios by layout bytes beside the crossover.
 22. The CSR-form SpMM kernel (``csrc/spmm_csr.cu``) and its route: the
     kernel against ``spmm_csr_reference`` and scipy on small seeded
     matrices (empty rows and an empty matrix, a row of 4.9 shares of
-    1,024 merge items, a block of dense rows; n = 1, 3, 50, 128, 257;
-    int32 and int64 row pointers, colinds and values off a 16 B boundary,
-    structure-only, B off a 16 B boundary or with padded rows; an inf in
-    B that some rows use); then, at n = 50 and 256, at the realistic case
+    1,024 merge items, a block of dense rows; n = 1, 2, 3, 4, 8, 16, 17,
+    32, 33, 50, 64, 65, 128, 129 and 256, every lanes-a-row and load
+    width of ``ops/spmm.py:csr_plan``; int32 and int64 row pointers,
+    colinds and values off a 16 B boundary, structure-only, B 16 B, 8 B
+    and 4 B aligned or with padded rows; each also into a C of NaN and
+    run twice, bitwise equal; an inf in B that some rows use); then, at
+    n = 50 and 256, at the realistic case
     (n = 50 only), 4.3M x 4,096, phase 20's hypersparse matrix and its
     transpose, phase 21's sweep, the flagship and the MovieLens-25M shape:
     the first ``mult_dense`` of a fresh CSR (route, host seconds), its
@@ -286,7 +301,7 @@ def per_call(fn, iters=50):
     return start.elapsed_time(end) / iters, host
 
 
-def device_ms(fn, calls=10, tries=8, by_kernel=False):
+def device_ms(fn, calls=10, tries=8, by_kernel=False, floor_ms=0.0):
     """Milliseconds of device time per call of ``fn``: the time of every
     kernel and copy ``torch.profiler`` saw on the card over ``calls`` calls,
     so the host's pace is left out.  The same clock for a hand-written
@@ -301,10 +316,13 @@ def device_ms(fn, calls=10, tries=8, by_kernel=False):
     product of 10 ms.  Every call launches the same kernels, so a window
     counts only if it kept a whole number of records a call of every
     kernel that the uncounted calls ran (none lost whole), and if their
-    time is no more than the counted calls took on the host's clock.  A
-    window that fails either test is taken again, ``tries`` times in all;
-    then this raises.  Nothing is extrapolated from a window with
-    records missing."""
+    time is no more than the counted calls took on the host's clock, and
+    (with ``floor_ms``, the least time the card could take for the bytes
+    ``fn`` must move) if a call reads no less than that floor: windows
+    have read variants of phase 20 at half their time, below the bytes
+    they move, with every record kept.  A window that fails a test is
+    taken again, ``tries`` times in all; then this raises.  Nothing is
+    extrapolated from a window with records missing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -345,6 +363,9 @@ def device_ms(fn, calls=10, tries=8, by_kernel=False):
             why.append(f"records kept over {calls} calls: {', '.join(partial)}")
         elif total_us > 1.02 * wall_us:
             why.append(f"{total_us:.0f} us on the device in {wall_us:.0f} us")
+        elif total_us / calls / 1e3 < floor_ms:
+            why.append(f"{total_us / calls / 1e3:.5f} ms a call, under the "
+                       f"floor of {floor_ms:.5f} ms")
         elif by_kernel:
             return total_us / calls / 1e3, {name: sum(us) / calls / 1e3
                                             for name, us in times.items()}
@@ -413,6 +434,13 @@ def phase_environment():
     assert threads == 32 * spmv_op.WARPS_PER_BLOCK, threads
     print(f"[1] spmv_bucket: no spills, {blocks} block an SM of {threads} "
           f"threads and {smem} B of shared memory, by the CUDA runtime")
+    # the CSR-form kernels: no spills (spmv_csr's build is held to 32
+    # registers, eight blocks an SM)
+    for name in ("spmv_csr", "spmm_csr"):
+        spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                            _cuda.build_log[name])
+        assert spills and all(st == ld == "0" for st, ld in spills), _cuda.build_log[name]
+        print(f"[1] {name}: no spills in its {len(spills)} functions")
     return card
 
 
@@ -1222,6 +1250,18 @@ def csr_bytes(nnz, nrows, x_elems, y_elems):
     return 8 * nnz + 4 * (nrows + 1) + 4 * x_elems + 4 * y_elems
 
 
+def microblock_floor_ms(layouts, nnz):
+    """``device_ms``'s floor for a micro-block SpMV over ``layouts``: every
+    micro-row's metadata (128 u16) and every stored value (f32) read once
+    (csrc/microblock_spmv.cuh reads both whatever the fill), at the card's
+    memory rate."""
+    from csr_tpu_torch.ops import microblock
+    from csr_tpu_torch.utils.profiling import least_ms
+
+    mrs = sum(lay.n_microrows for lay in layouts)
+    return least_ms(mrs * microblock.LANE * 2 + 4 * nnz, 0)[0]
+
+
 def layer_stack(stack, l):
     """Layer ``l`` of a stack alone (views, no copy): what one rank of a
     four-card ring holds and launches on."""
@@ -1712,17 +1752,17 @@ def check_panels(tag, chunks, a, x):
 
 def phase_large(fl_csr, fl_a, x_fl, card):
     """[18] ``spmv_large`` (:func:`large_path`), with ``_CSR_CROSSOVER``
-    set past every matrix for the phase: the 4,300,000-row matrix takes the
-    CSR-form kernel by default (phase 21), and this phase holds the
-    micro-block kernel's large path."""
+    and ``_CSR_CROSSOVER_LARGE`` set past every matrix for the phase: the
+    4,300,000-row matrix takes the CSR-form kernel by default (phase 21),
+    and this phase holds the micro-block kernel's large path."""
     from csr_tpu_torch.kernels import cuda as cuda_k
 
-    saved = cuda_k._CSR_CROSSOVER
-    cuda_k._CSR_CROSSOVER = float("inf")
+    saved = cuda_k._CSR_CROSSOVER, cuda_k._CSR_CROSSOVER_LARGE
+    cuda_k._CSR_CROSSOVER = cuda_k._CSR_CROSSOVER_LARGE = float("inf")
     try:
         return large_path(fl_csr, fl_a, x_fl, card)
     finally:
-        cuda_k._CSR_CROSSOVER = saved
+        cuda_k._CSR_CROSSOVER, cuda_k._CSR_CROSSOVER_LARGE = saved
 
 
 def large_path(fl_csr, fl_a, x_fl, card, nrows=4_300_000, ncols=4096,
@@ -2042,7 +2082,7 @@ def phase_layouts(fl, ml, card):
     """[20] The six (window, pair) layouts of each of
     :func:`layout_matrices`: micro-rows, fill and bytes, the SpMV kernel
     held to the SpMV bound against scipy, and its device time
-    (``device_ms``, the best of two rounds taken in opposite orders).  At
+    (``device_ms``, the median of three rounds taken in turns).  At
     the flagship and the MovieLens shape, each window's pair-1 layout
     also times the SpMM kernel (B x 256 and x 50, checked against scipy
     on a column slice) and a ring step (D = 4, local form, the mean of
@@ -2068,11 +2108,17 @@ def phase_layouts(fl, ml, card):
             build_s = time.perf_counter() - t0
             share = spmv_share(spmv_op.spmv(lay, xd), ref, a, x)
             layouts[w, p] = lay, build_s, share
-        ms = {v: float("inf") for v in VARIANTS}
-        for order in (VARIANTS, VARIANTS[::-1]):
+        # the median of three rounds, in turns: device_ms takes again a
+        # window under the variant's floor (one had read half a variant's
+        # time and failed the pick's assertion with the best of two), and
+        # the median leaves out one window that reads low above it
+        runs = {v: [] for v in VARIANTS}
+        for order in (VARIANTS, VARIANTS[::-1], VARIANTS):
             for v in order:
                 lay = layouts[v][0]
-                ms[v] = min(ms[v], device_ms(lambda: spmv_op.spmv(lay, xd), 20))
+                runs[v].append(device_ms(lambda: spmv_op.spmv(lay, xd), 20,
+                                         floor_ms=microblock_floor_ms([lay], a.nnz)))
+        ms = {v: float(np.median(t)) for v, t in runs.items()}
         rows = []
         for v in VARIANTS:
             lay, build_s, share = layouts[v]
@@ -2164,6 +2210,16 @@ CSR_KERNEL = {
 #: 131,072-row matrices of power_law_rows
 CSR_SWEEP = ((12, 4096), (12, 1 << 16), (12, 1 << 20), (12, 1 << 22),
              (64, 1 << 20), (327, 1 << 20))
+#: more of phase 21's sweep, for SpMV alone: 131,072-row matrices whose
+#: (256, 1) layouts cost 8.3-24.1 B a stored entry, about the crossover
+#: (phase 22's crossover sweep's matrices)
+CSR_CROSSOVER_SWEEP = tuple((k, 4096) for k in (8, 10, 13)) + tuple(
+    (k, 1 << 16) for k in (64, 96))
+#: entries a row of phase 21's 4,300,000 x 4,096 matrices past the
+#: packer's range besides phase 18's 8 (24.13 B a stored entry): 12, 16
+#: and 24 a row cost 16.08, 12.06 and 8.62 B, two on each side of
+#: ``_CSR_CROSSOVER_LARGE`` with phase 18's
+CSR_LARGE_SWEEP = (12, 16, 24)
 
 
 @functools.lru_cache(maxsize=None)
@@ -2196,9 +2252,12 @@ def csr_cases(fl, ml):
         65_536, 1 << 20, 12, seed=12 + (1 << 20))), both
     yield "4.3M x 4,096", (4_300_000, 4096, *power_law_rows(
         4_300_000, 4096, 8, seed=18)), both
+    for per_row in CSR_LARGE_SWEEP:
+        yield (f"4.3M x 4,096, {per_row} a row", (4_300_000, 4096, *power_law_rows(
+            4_300_000, 4096, per_row, seed=18 + per_row)), (False,))
     yield "flagship", fl[:5], both
     yield "MovieLens shape", ml[:5], both
-    for per_row, ncols in CSR_SWEEP:
+    for per_row, ncols in CSR_SWEEP + CSR_CROSSOVER_SWEEP:
         yield (f"sweep {per_row} a row over {ncols}",
                (131_072, ncols, *power_law_rows(131_072, ncols, per_row,
                                                 seed=per_row + ncols)), (False,))
@@ -2221,13 +2280,46 @@ def csr_views(a, offset_c, offset_v, ptr_dtype, structure_only=False):
     return rp, ci, None if structure_only else v
 
 
+def spmv_csr_into_nan(rp, ci, v, xd):
+    """The CSR-form SpMV kernel's zeroed path (``spmv_csr``'s launch, with
+    the edges of ``csr_shares``) into a y filled with NaN, so that a row
+    the kernel does not write shows."""
+    from csr_tpu_torch.ops import _cuda, spmv as spmv_op
+
+    y = torch.full((rp.shape[0] - 1,), float("nan"), device="cuda")
+    slots = spmv_op.MAX_BLOCKS_PER_SM * spmv_op._sm_count(y.device)
+    scratch = torch.empty(2 * slots, dtype=torch.int64, device="cuda")
+    edges = spmv_op.csr_shares(rp, ci.shape[0])[0]
+    _cuda.spmv_csr(rp, edges, False, ci, v, xd, y, True, scratch[slots:],
+                   scratch[:slots])
+    return y
+
+
+def cut_rows_matrix(rng, nrows=3_000_000, ncols=1 << 20):
+    """A matrix whose rows are cut at share and at block edges: 0 to 4
+    entries a row, and rows of 60,000 entries (about 30 shares of 2048
+    merge items each, so over several of the persistent blocks' runs of
+    shares) and one of 4,096 entries (the realistic case's longest)."""
+    lengths = rng.integers(0, 5, nrows)
+    lengths[[1000, 1_500_000, nrows - 2]] = 60_000
+    lengths[2_000_000] = 4096
+    rp = np.zeros(nrows + 1, np.int64)
+    np.cumsum(lengths, out=rp[1:])
+    return sps.csr_matrix((rng.standard_normal(int(rp[-1])).astype(np.float32),
+                           rng.integers(0, ncols, int(rp[-1])).astype(np.int32), rp),
+                          shape=(nrows, ncols))
+
+
 def phase_csr_kernel_vs_plain():
     """[21] The CSR-form kernel against spmv_csr_reference (and scipy) on
     small seeded matrices on the card: empty rows and an empty matrix, a
     row longer than many shares together, int32 and int64 rowptrs,
     colinds and values off a 16 B boundary (the same way and not),
     structure-only, ``out=`` accumulation, and an inf in x that one row
-    uses.  Returns the largest difference."""
+    uses; and a matrix whose rows are cut at share and block edges, with a
+    4,096-entry row.  Every case also runs into a y filled with NaN (every
+    row written) and twice (bitwise equal).  Returns the largest
+    difference."""
     from csr_tpu_torch.ops import spmv as spmv_op
 
     rng = np.random.default_rng(2100)
@@ -2236,26 +2328,30 @@ def phase_csr_kernel_vs_plain():
     lil[17, :] = rng.standard_normal(9000)          # 4.4 shares of one row
     lil[18, 5] = 2.0
     lil[400:430, :300] = rng.standard_normal((30, 300))
+    every = ((0, 0, torch.int32, False), (1, 1, torch.int64, False),
+             (3, 3, torch.int32, False), (1, 2, torch.int64, False),
+             (2, 0, torch.int32, True))
     mats = [("random", sps.random(3000, 5000, 0.004, format="csr",
-                                  random_state=rng, dtype=np.float32)),
-            ("long row, empty rows", lil.tocsr()),
-            ("empty", sps.csr_matrix((50, 40), dtype=np.float32))]
-    for name, a in mats:
+                                  random_state=rng, dtype=np.float32), every),
+            ("long row, empty rows", lil.tocsr(), every),
+            ("empty", sps.csr_matrix((50, 40), dtype=np.float32), every),
+            ("rows cut at share and block edges", cut_rows_matrix(rng), every[:2])]
+    for name, a, views in mats:
         x = rng.standard_normal(a.shape[1]).astype(np.float32)
         xd = torch.from_numpy(x).cuda()
-        ref64 = a.astype(np.float64) @ x
-        for oc, ov, pd, so in ((0, 0, torch.int32, False), (1, 1, torch.int64, False),
-                               (3, 3, torch.int32, False), (1, 2, torch.int64, False),
-                               (2, 0, torch.int32, True)):
+        for oc, ov, pd, so in views:
             rp, ci, v = csr_views(a, oc, ov, pd, so)
             b = a if not so else sps.csr_matrix(
                 (np.ones(a.nnz, np.float32), a.indices, a.indptr), shape=a.shape)
             y = spmv_op.spmv_csr(rp, ci, v, xd)
+            again = spmv_op.spmv_csr(rp, ci, v, xd)
             y_ref = spmv_op.spmv_csr_reference(rp, ci, v, xd)
             out = torch.full((a.shape[0],), 0.5, device="cuda")
             y_out = spmv_op.spmv_csr(rp, ci, v, xd, out=out)
+            nan = spmv_csr_into_nan(rp, ci, v, xd) if a.nnz else y
             torch.cuda.synchronize()
             assert y_out is out
+            assert torch.equal(y, again) and torch.equal(y, nan), name
             err = float((y - y_ref).abs().max()) if a.shape[0] else 0.0
             worst = max(worst, err)
             spmv_share(y, y_ref.cpu().numpy(), b, x)
@@ -2263,8 +2359,9 @@ def phase_csr_kernel_vs_plain():
             spmv_share(y_out - 0.5, b.astype(np.float64) @ x, b, x)
             print(f"[21] {name} ({a.shape[0]}x{a.shape[1]}, nnz {a.nnz}), colinds "
                   f"+{oc}, values +{ov}, rowptrs {pd}, structure-only {so}: "
-                  f"kernel vs plain max abs err {err:.3g}; out= adds")
-        del ref64
+                  f"kernel vs plain max abs err {err:.3g}; out= adds; a y of NaN "
+                  f"all written; two runs bitwise equal")
+        del xd, y, again, y_ref, out, y_out, nan
     # an inf in x used by one row only
     a = mats[1][1]
     x = rng.standard_normal(a.shape[1]).astype(np.float32)
@@ -2276,6 +2373,7 @@ def phase_csr_kernel_vs_plain():
     assert set(bad) == set(uses), (bad, uses)
     print(f"[21] inf in x[5]: non-finite rows {bad.tolist()}, the rows that "
           f"use column 5 {uses.tolist()}")
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -2340,10 +2438,11 @@ def phase_csr(fl, ml, card):
             del y
 
             fm = cuda_k._cached_csr_t(csr) if t else cuda_k._csr_form(csr)
+            edges = cuda_k._spmv_edges(csr, t)  # as the route hands them
             csr_bytes_entry = sum(u.numel() * u.element_size()
                                   for u in fm if u is not None) / nnz
             mb_bytes_entry = cuda_k._layout_bytes_per_entry(csr, t)
-            yk = spmv_op.spmv_csr(*fm, xd)
+            yk = spmv_op.spmv_csr(*fm, xd, edges=edges)
             yr = spmv_op.spmv_csr_reference(*fm, xd)
             torch.cuda.synchronize()
             err = float((yk - yr).abs().max())
@@ -2351,25 +2450,43 @@ def phase_csr(fl, ml, card):
             spmv_share(yk, ref, b, x)
             del yk, yr
 
-            fns = {"csr": lambda: spmv_op.spmv_csr(*fm, xd)}
+            fns = {"csr": lambda: spmv_op.spmv_csr(*fm, xd, edges=edges)}
             lib = torch_csr(b)
             fns["library"] = lambda: lib @ xd
+            bound_ms, by = least_ms(csr_bytes(nnz, b.shape[0], b.shape[1], b.shape[0]),
+                                    2 * nnz)
+            floors = {"csr": bound_ms}
             if name != "realistic":
                 if large:
                     mb = cuda_k._cached_large(csr, t)
                     fns["microblock"] = lambda: spmv_op.spmv_large(mb, b.shape[1], xd)
+                    floors["microblock"] = microblock_floor_ms(
+                        [lay for _, p in mb for _, lay in p], nnz)
                 else:
                     mb = cuda_k._cached_layout_t(csr) if t else cuda_k._cached_layout(csr)
                     fns["microblock"] = lambda: spmv_op.spmv(mb, xd)
+                    floors["microblock"] = microblock_floor_ms([mb], nnz)
                 spmv_share(fns["microblock"](), ref, b, x)
             ms = {k: float("inf") for k in fns}
             for order in (list(fns), list(fns)[::-1]):
                 for k in order:
-                    ms[k] = min(ms[k], device_ms(fns[k], 10))
+                    ms[k] = min(ms[k], device_ms(fns[k], 10,
+                                                 floor_ms=floors.get(k, 0.0)))
             plain_ms = device_ms(lambda: spmv_op.spmv_csr_reference(*fm, xd), 2)
-            bound_ms, by = least_ms(csr_bytes(nnz, b.shape[0], b.shape[1], b.shape[0]),
-                                    2 * nnz)
             assert bound_ms <= ms["csr"], (tag, bound_ms, ms)
+            # the zeroed path: the kernel and its carry pass, no memset
+            _, parts = device_ms(fns["csr"], 10, by_kernel=True)
+            assert len(parts) == 2 and all("spmv_csr" in k for k in parts), parts
+            direct = {}
+            if name == "hypersparse" and not t:
+                # a call without edges: merge_path.cuh's search in a launch of
+                # its own, against the edges by csr_shares' searchsorted first
+                direct = {"search_ms": device_ms(lambda: spmv_op.spmv_csr(*fm, xd), 10),
+                          "searchsorted_ms": device_ms(lambda: spmv_op.spmv_csr(
+                              *fm, xd, edges=spmv_op.csr_shares(fm[0], nnz)[0]), 10)}
+                print(f"[21] {tag}: a call without edges {direct['search_ms']:.5f} ms "
+                      f"(the kernel's search), {direct['searchsorted_ms']:.5f} ms with "
+                      f"csr_shares first; card {card}")
             kernels_ms = [ms[k] for k in ("csr", "microblock") if k in ms]
             pick = ms["csr" if route == "csr" else "microblock"]
             row = dict(matrix=tag, shape=list(b.shape), nnz=nnz, route=route,
@@ -2380,7 +2497,7 @@ def phase_csr(fl, ml, card):
                        microblock_bytes_per_entry=mb_bytes_entry,
                        route_s=t1 - t0, first_call_s=t2 - t0, share=share,
                        share_plain=share_plain, max_abs_err=err,
-                       launches=counts)
+                       launches=counts, device_kernels=sorted(parts), **direct)
             rows.append(row)
             mbs = ("not run" if "microblock" not in ms else
                    f"{ms['microblock']:.5f} ms ({'spmv_large' if large else 'one layout'})")
@@ -2395,10 +2512,19 @@ def phase_csr(fl, ml, card):
                   f"{share:.3g}, kernel vs plain {share_plain:.3g} (max abs err {err:.3g}); "
                   f"card {card}")
             assert pick <= CHOICE_SLACK * min(kernels_ms), (tag, route, ms)
-            del fns, lib, fm
+            del fns, lib, fm, edges
             torch.cuda.empty_cache()
         del csr, a, b
         torch.cuda.empty_cache()
+    for large, point in ((False, "_CSR_CROSSOVER"), (True, "_CSR_CROSSOVER_LARGE")):
+        pts = "; ".join(f"{r['microblock_bytes_per_entry']:.2f} "
+                        f"{r['microblock_ms'] / r['csr_ms']:.3f} ({r['matrix']})"
+                        for r in sorted(rows, key=lambda r: r["microblock_bytes_per_entry"])
+                        if r["microblock_ms"] and r["large"] == large)
+        print(f"[21] {'past' if large else 'within'} the packer's range: layout bytes "
+              f"a stored entry and micro-block time / CSR-form time (above 1: the "
+              f"CSR form is the faster): {pts}; the port's {point} is "
+              f"{getattr(cuda_k, point)}")
     print(json.dumps({"csr_route": rows}))
     return rows, csr_counts
 
@@ -2427,8 +2553,10 @@ CSR_SPMM_KERNEL = {
     "source": "csr_tpu_torch/csrc/spmm_csr.cu",
     "replaces": "csr_tpu/ops/spmm.py:66",
 }
-#: phase 22's widths of B against the plain version
-SPMM_CSR_WIDTHS = (1, 3, 50, 128, 257)
+#: phase 22's widths of B against the plain version: every lanes-a-row
+#: (4, 8, 16, 32) and load width (4, 8, 16 B) of ops/spmm.py:csr_plan, on
+#: both sides of each change
+SPMM_CSR_WIDTHS = (1, 2, 3, 4, 8, 16, 17, 32, 33, 50, 64, 65, 128, 129, 256)
 
 
 def b_view(ncols, n, rng, offset=0, pad=0):
@@ -2456,14 +2584,32 @@ def spmm_share_card(c, ref, rtol=SPMM_RTOL, atol=SPMM_ATOL) -> float:
     return share
 
 
+def spmm_csr_into_nan(rp, ci, v, bd):
+    """The CSR-form SpMM kernel (``spmm_csr``'s launch, with the edges of
+    ``csr_shares`` and ``csr_plan``'s lanes and load width) into a C filled
+    with NaN, so that a row the kernel does not write shows."""
+    from csr_tpu_torch.ops import _cuda, spmm as spmm_op, spmv as spmv_op
+
+    nrows, nnz, n = rp.shape[0] - 1, ci.shape[0], bd.shape[1]
+    c = torch.full((nrows, n), float("nan"), device="cuda")
+    shares = spmv_op.n_shares(nrows, nnz, spmm_op.CSR_TILE)
+    width, lanes = spmm_op.csr_plan(n, bd.stride(0), bd.data_ptr() & -bd.data_ptr())
+    _cuda.spmm_csr(rp, spmv_op.csr_shares(rp, nnz, spmm_op.CSR_TILE)[0], False, ci,
+                   v, bd, c, torch.empty(shares, n, device="cuda"),
+                   torch.empty(shares, dtype=torch.int32, device="cuda"), width, lanes)
+    return c
+
+
 def phase_spmm_csr_kernel_vs_plain():
     """[22] The CSR-form SpMM kernel against spmm_csr_reference (and
     scipy) on small seeded matrices on the card: empty rows and an empty
-    matrix, a row of 4.9 shares, a block of 30 dense rows; B of n = 1, 3,
-    50, 128 and 257 columns; int32 and int64 rowptrs, colinds and values
-    off a 16 B boundary, structure-only, and a B off a 16 B boundary or
-    with padded rows (the 16 B path and the scalar one); an inf in B that
-    some rows use.  Returns the largest difference."""
+    matrix, a row of 4.9 shares, a block of 30 dense rows; B of every
+    width of SPMM_CSR_WIDTHS; int32 and int64 rowptrs, colinds and values
+    off a 16 B boundary, structure-only, and a B 16 B aligned, with padded
+    rows, 4 B and 8 B aligned (each load width the plan allows); each run
+    also into a C filled with NaN (every row written) and twice (bitwise
+    equal); an inf in B that some rows use.  Returns the largest
+    difference."""
     from csr_tpu_torch.ops import spmm as spmm_op
 
     rng = np.random.default_rng(2200)
@@ -2480,26 +2626,35 @@ def phase_spmm_csr_kernel_vs_plain():
         ones = sps.csr_matrix((np.ones(a.nnz, np.float32), a.indices, a.indptr),
                               shape=a.shape)
         for n in SPMM_CSR_WIDTHS:
+            plans, err_n, shares = set(), 0.0, []
             # (colinds +, values +, rowptrs, structure-only, B +, B's row pad)
             for oc, ov, pd, so, bo, bp in ((0, 0, torch.int32, False, 0, 0),
                                            (1, 1, torch.int64, False, 0, 4),
                                            (2, 0, torch.int32, True, 1, 0),
-                                           (3, 3, torch.int64, False, 3, 3)):
+                                           (3, 3, torch.int64, False, 2, 0)):
                 rp, ci, v = csr_views(a, oc, ov, pd, so)
                 b, bd = b_view(a.shape[1], n, rng, bo, bp)
                 c = spmm_op.spmm_csr(rp, ci, v, bd)
+                again = spmm_op.spmm_csr(rp, ci, v, bd)
+                nan = spmm_csr_into_nan(rp, ci, v, bd) if a.nnz else c
                 c_ref = spmm_op.spmm_csr_reference(rp, ci, v, bd)
                 torch.cuda.synchronize()
+                assert torch.equal(c, again) and torch.equal(c, nan), (name, n, bo)
                 err = float((c - c_ref).abs().max()) if c.numel() else 0.0
                 worst = max(worst, err)
                 share = spmm_share(c, c_ref.cpu().numpy())
                 share_sp = spmm_share(c, (ones if so else a).astype(np.float64) @ b)
-                vec = n % 4 == 0 and bd.stride(0) % 4 == 0 and bd.data_ptr() % 16 == 0
-                print(f"[22] {name} ({a.shape[0]}x{a.shape[1]}, nnz {a.nnz}), n {n}, "
-                      f"colinds +{oc}, values +{ov}, rowptrs {pd}, structure-only "
-                      f"{so}, B +{bo} rows {n + bp} apart ({'16 B' if vec else 'scalar'} "
-                      f"path): kernel vs plain max abs err {err:.3g}, share "
-                      f"{share:.3g} (vs scipy {share_sp:.3g})")
+                width, lanes = spmm_op.csr_plan(n, bd.stride(0),
+                                                bd.data_ptr() & -bd.data_ptr())
+                plans.add(f"{lanes} lanes a row, {4 * width} B loads")
+                err_n = max(err_n, err)
+                shares.append(max(share, share_sp))
+            print(f"[22] {name} ({a.shape[0]}x{a.shape[1]}, nnz {a.nnz}), n {n}: "
+                  f"colinds and values +0..3 floats, int32 and int64 rowptrs, "
+                  f"structure-only, B +0, +1, +2 floats and padded rows "
+                  f"({'; '.join(sorted(plans))}): kernel vs plain max abs err "
+                  f"{err_n:.3g}, largest share of the bound {max(shares):.3g}; a C "
+                  f"of NaN all written; two runs bitwise equal")
     # an inf in B, in the row that column 5 gathers: only the rows that use
     # column 5 turn non-finite, and only in the inf's column
     a = mats[1][1]
@@ -2630,13 +2785,14 @@ def phase_spmm_csr(fl, ml, card):
             del c
 
             fm = cuda_k._csr_form(csr)
-            ck = spmm_op.spmm_csr(*fm, bd)
+            edges = cuda_k._spmm_edges(csr)  # as the route hands them
+            ck = spmm_op.spmm_csr(*fm, bd, edges=edges)
             cr = spmm_op.spmm_csr_reference(*fm, bd)
             torch.cuda.synchronize()
             err = float((ck - cr).abs().max())
             share_plain = spmm_share_card(ck, cr)
             del ck, cr
-            fns = {"csr": lambda: spmm_op.spmm_csr(*fm, bd)}
+            fns = {"csr": lambda: spmm_op.spmm_csr(*fm, bd, edges=edges)}
             lib = torch_csr(a)
             fns["library"] = lambda: lib @ bd
             if name != "realistic":
@@ -2647,11 +2803,12 @@ def phase_spmm_csr(fl, ml, card):
                     mb = cuda_k._cached_layout(csr)
                     fns["microblock"] = lambda: spmm_op.spmm(mb, bd)
                 sample_check(fns["microblock"](), a, bd, seed=i)
-            ms = {k: device_ms(fn, 10) for k, fn in fns.items()}
-            plain_ms = device_ms(lambda: spmm_op.spmm_csr_reference(*fm, bd), 2)
             # B's rows that some entry gathers, each read once
             bound_ms, by = least_ms(csr_bytes(nnz, nrows, used * n, nrows * n),
                                     2 * nnz * n)
+            ms = {k: device_ms(fn, 10, floor_ms=bound_ms if k == "csr" else 0.0)
+                  for k, fn in fns.items()}
+            plain_ms = device_ms(lambda: spmm_op.spmm_csr_reference(*fm, bd), 2)
             assert bound_ms <= ms["csr"], (tag, bound_ms, ms)
             mb_bytes = cuda_k._layout_bytes_per_entry(csr, False)
             kernels_ms = [ms[k] for k in ("csr", "microblock") if k in ms]
@@ -2679,7 +2836,7 @@ def phase_spmm_csr(fl, ml, card):
                   f"(max abs err {err:.3g}); {row['host_s']:.1f} s on the host; "
                   f"card {card}")
             assert pick <= CHOICE_SLACK * min(kernels_ms), (tag, route, ms)
-            del fns, lib, fm, bd
+            del fns, lib, fm, bd, edges
             torch.cuda.empty_cache()
         del a, csr
     print(json.dumps({"spmm_csr_route": rows}))
@@ -2722,11 +2879,12 @@ def phase_spmm_crossover(rows, card, turns=1):
         on_card(csr)
         mb = cuda_k._cached_layout(csr)
         fm = cuda_k._csr_form(csr)
+        edges = cuda_k._spmm_edges(csr)
         mb_bytes = cuda_k._layout_bytes_per_entry(csr, False)
         for n in widths:
             bd = torch.randn(ncols, n, device="cuda", generator=torch.Generator(
                 device="cuda").manual_seed(nrows + ncols + n))
-            fns = {"csr": lambda: spmm_op.spmm_csr(*fm, bd),
+            fns = {"csr": lambda: spmm_op.spmm_csr(*fm, bd, edges=edges),
                    "microblock": lambda: spmm_op.spmm(mb, bd)}
             share = spmm_share_card(fns["csr"](), fns["microblock"]())
             runs = {"csr": [], "microblock": []}
@@ -2751,7 +2909,7 @@ def phase_spmm_crossover(rows, card, turns=1):
                   f"ratio of medians {med['microblock'] / med['csr']:.4f}; kernels "
                   f"agree, share {share:.3g}; card {card}")
             del bd, fns
-        del csr, mb, fm
+        del csr, mb, fm, edges
         torch.cuda.empty_cache()
     for n in (50, 256):
         pts = "; ".join(f"{b:.2f} {r:.3f} ({m})" for b, r, m in spmm_crossover(rows + sweep, n))
@@ -2863,14 +3021,15 @@ def phase_inplace(card):
     xt = rng.standard_normal(3000).astype(np.float32)
     b = rng.standard_normal((2000, 24)).astype(np.float32)
     inf = float("inf")
-    settings = {  # route: (_CSR_CROSSOVER, _SPMM_CSR_CROSSOVER, _LARGE_WINDOWS, _DENSIFY_CROSSOVER)
-        "micro-block": (inf, ((1, inf),), cuda_k._LARGE_WINDOWS, ((1, 2.0),)),
-        "CSR form": (0.0, ((1, 0.0),), cuda_k._LARGE_WINDOWS, ((1, 2.0),)),
-        "chunk/panel": (inf, ((1, inf),), 4, ((1, 2.0),)),
-        "dense": (inf, ((1, inf),), cuda_k._LARGE_WINDOWS, ((1, 0.0),)),
+    settings = {  # route: (_CSR_CROSSOVER and _CSR_CROSSOVER_LARGE,
+        # _SPMM_CSR_CROSSOVER, _LARGE_WINDOWS, _DENSIFY_CROSSOVER)
+        "micro-block": (inf, inf, ((1, inf),), cuda_k._LARGE_WINDOWS, ((1, 2.0),)),
+        "CSR form": (0.0, 0.0, ((1, 0.0),), cuda_k._LARGE_WINDOWS, ((1, 2.0),)),
+        "chunk/panel": (inf, inf, ((1, inf),), 4, ((1, 2.0),)),
+        "dense": (inf, inf, ((1, inf),), cuda_k._LARGE_WINDOWS, ((1, 0.0),)),
     }
-    names = ("_CSR_CROSSOVER", "_SPMM_CSR_CROSSOVER", "_LARGE_WINDOWS",
-             "_DENSIFY_CROSSOVER")
+    names = ("_CSR_CROSSOVER", "_CSR_CROSSOVER_LARGE", "_SPMM_CSR_CROSSOVER",
+             "_LARGE_WINDOWS", "_DENSIFY_CROSSOVER")
     saved = [getattr(cuda_k, k) for k in names]
     try:
         for route, values in settings.items():

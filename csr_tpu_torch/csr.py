@@ -88,7 +88,9 @@ class CSR:
     __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_host",
                  "_host_versions", "_mb_layout_cache", "_mb_layout_t_cache",
                  "_shard_cache", "_mb_large_cache", "_mb_large_t_cache",
-                 "_csr_t_cache", "_mb_stat_cache")
+                 "_csr_t_cache", "_mb_stat_cache", "_spmv_edges_cache",
+                 "_spmv_edges_t_cache", "_spmm_edges_cache",
+                 "_spmm_edges_t_cache")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True,
                  device=None):

@@ -21,33 +21,42 @@
 //   * Split (merge path, Merrill & Garland, SC16; merge_path.cuh): the
 //     merge of the row ends with the entry indices is cut into shares of
 //     kTile items, one a block, so a row of 29K entries and a million
-//     empty rows both balance.  Two warps find the share's edges by 32-way
-//     searches of rowptrs.
+//     empty rows both balance.  The rows at the share edges come in
+//     (`edges`, cached on the matrix by kernels/cuda.py), or one launch of
+//     merge_path.cuh's search fills them first.
 //   * Staging: the block copies its share's row ends and (column, value)
 //     pairs into shared memory once, for all its warps and all passes over
-//     C's columns.  Each warp then takes kWarpItems items of the share (its
-//     start found by a binary search in shared memory).
-//   * Lanes along B's row: a pass covers kCols = 128 columns of C, four a
-//     lane: one 16 B load a lane where n % 4 == 0 and B's and C's rows lie
-//     on 16 B boundaries (vec), else four scalar loads a lane, columns
-//     lane + 32 j, so any n and any 4 B aligned B run with no padded copy.
-//     A warp walks its items row by row; within a row the gathers of four
-//     entries are issued before any is used.  A walk of eight entries at
-//     a time across row ends, so that a thin row's gathers overlap the
-//     next rows', was tried on the H100 and was slower at 4.3M x 4,096
-//     (PERF.md).  At thin rows the walk's instructions a row, not the
-//     gathers, bound the kernel.
+//     C's columns.
+//   * A sub-warp a row: `lanes` lanes (4, 8, 16 or 32; ops/spmm.py:
+//     csr_plan picks the fewest that cover n) walk one row, 4 columns of C
+//     a lane, so a pass covers 4 lanes columns and a warp walks 32 / lanes
+//     rows at once (two at ALS's n = 50, eight at n <= 16).  A lane loads
+//     kW floats at a time: 16 B where n % 4 == 0 and B's and C's rows lie
+//     on 16 B boundaries, 8 B where n is even and they lie on 8 B ones
+//     (n = 50: 200 B rows), else 4 B; so any n and any 4 B aligned B run
+//     with no padded copy.  Each sub-warp (a unit) takes kWarpItems /
+//     (32 / lanes) items of the share, from its own point (a binary search
+//     in shared memory), and walks them row by row.
+//   * Within a row the gathers of kU entries are issued together, whole
+//     batches first and the rest of the row in one batch predicated past
+//     its end, so a row of up to kU entries waits for its gathers once
+//     (kU = 8 cost more registers than it saved).  C
+//     is stored with streaming stores (st.global.cs), B read by __ldg.  An
+//     L2 evict-last hint on B gained nothing in a kernel's own time on the
+//     H100 and left its lines in L2 after the kernel, where they cost the
+//     kernels that followed (PERF.md).
 //   * Rows: a row's sums stay in registers across its entries, and only a
 //     row's own products are added, in f32: no prefix differences, so an
 //     inf in B reaches only the rows whose entries use its row.  A row that
-//     a warp starts and ends is stored once with a plain store; an empty
-//     row stores zeros.  Every row's end lies in exactly one share, so
-//     every row of C is written by the first launch and C needs no memset.
-//   * Cut rows: a warp leaves its first ended row and its unended tail in
-//     shared memory; after the walk 128 threads add them in warp order and
-//     store the rows that the share ends (a row cut between warps).  What a
-//     share holds of the row it does not end (its tail, cut by the share's
-//     edge) goes to carry[share] (n floats), and the row to
+//     a unit starts and ends is stored once; an empty row stores zeros.
+//     Every row's end lies in exactly one share, so every row of C is
+//     written by the first launch and C needs no memset.
+//   * Cut rows: a unit leaves its first ended row and its unended tail in
+//     shared memory; after the walk a thread a column of the pass adds
+//     them in unit order and stores the rows that the share ends (a row
+//     cut between units).
+//     What a share holds of the row it does not end (its tail, cut by the
+//     share's edge) goes to carry[share] (n floats), and the row to
 //     carry_row[share] (-1: no tail).  A second launch, a block a share,
 //     takes the first share of each run of equal carry_row, sums the run's
 //     carries in share order and adds them to the row, which the first
@@ -66,60 +75,87 @@ constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kWarpItems = 128;             // merge items a warp
 constexpr int kTile = kWarps * kWarpItems;  // merge items a share (SPMM_CSR_TILE)
-constexpr int kCols = 128;                  // columns of C a pass, 4 a lane
+constexpr int kPass = 4 * kThreads;         // columns of C a pass, over all units
+constexpr int kMaxUnits = kWarps * 8;       // units at 4 lanes a row
+constexpr int kU = 4;                       // entries whose gathers fly together
 constexpr int kFixThreads = 128;
 
-// Column j (0..3) of a lane's four, from the pass's first column: 4 lane + j
-// with 16 B loads, lane + 32 j with scalar ones.
-template <bool kVec>
-__device__ __forceinline__ int col_of(int lane, int j) {
-  return kVec ? 4 * lane + j : lane + 32 * j;
+// kW floats of B at p.
+template <int kW>
+__device__ __forceinline__ void load_b(const float* p, float* q) {
+  if (kW == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    q[0] = t.x;
+    q[1] = t.y;
+    q[2] = t.z;
+    q[3] = t.w;
+  } else if (kW == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    q[0] = t.x;
+    q[1] = t.y;
+  } else {
+    q[0] = __ldg(p);
+  }
 }
 
-// acc[j] += vals[u] * B[cols[u], c0 + col_of(lane, j)] for the kU entries
-// and the columns below n; all kU gathers are issued before any is used.
-template <bool kVec, int kU>
+// kW floats to C at p, by streaming stores.
+template <int kW>
+__device__ __forceinline__ void store_c(float* p, const float* v) {
+  if (kW == 4) __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  else if (kW == 2) __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  else __stcs(p, v[0]);
+}
+
+// The column, from the pass's first, of a lane's value i (0..3): lane l of
+// a unit of `lanes` lanes loads kW floats at kW (l + lanes j), j < 4 / kW.
+template <int kW>
+__device__ __forceinline__ int col_of(int l, int lanes, int i) {
+  return kW * (l + lanes * (i / kW)) + i % kW;
+}
+
+// acc[i] += vals[u] * B[cols[u], c0 + col_of(i)] for the first `count` of
+// kU entries and the columns below n; all their gathers are issued before
+// any is used.
+template <int kW>
 __device__ __forceinline__ void accumulate(const float* __restrict__ b,
-                                           int64_t ldb, int c0, int n,
-                                           int lane, const int32_t* cols,
-                                           const float* vals, float acc[4]) {
+                                           int64_t ldb, int c0, int n, int l,
+                                           int lanes, const int32_t* cols,
+                                           const float* vals, int count,
+                                           float acc[4]) {
   float q[kU][4];
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
-    const float* row = b + int64_t(cols[u]) * ldb + c0;
-    if (kVec) {
-      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (c0 + 4 * lane < n) t = __ldg(reinterpret_cast<const float4*>(row) + lane);
-      q[u][0] = t.x;
-      q[u][1] = t.y;
-      q[u][2] = t.z;
-      q[u][3] = t.w;
-    } else {
+    const float* row = b + int64_t(u < count ? cols[u] : 0) * ldb + c0;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        q[u][j] = c0 + lane + 32 * j < n ? __ldg(row + lane + 32 * j) : 0.f;
+    for (int j = 0; j < 4 / kW; ++j) {
+      const int col = kW * (l + lanes * j);
+      if (u < count && c0 + col < n) {
+        load_b<kW>(row + col, &q[u][kW * j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kW; ++e) q[u][kW * j + e] = 0.f;
+      }
     }
   }
 #pragma unroll
   for (int u = 0; u < kU; ++u)
+    if (u < count) {
+      const float v = vals[u];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] += vals[u] * q[u][j];
+      for (int i = 0; i < 4; ++i) acc[i] += v * q[u][i];
+    }
 }
 
-// C[row, c0 + col_of(lane, j)] = acc[j] for the columns below n.
-template <bool kVec>
+// C[row, c0 + col_of(i)] = acc[i] for the columns below n.
+template <int kW>
 __device__ __forceinline__ void store_row(float* __restrict__ c, int n,
-                                          int64_t row, int c0, int lane,
+                                          int64_t row, int c0, int l, int lanes,
                                           const float acc[4]) {
   float* out = c + row * n + c0;
-  if (kVec) {
-    if (c0 + 4 * lane < n)
-      reinterpret_cast<float4*>(out)[lane] =
-          make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (c0 + lane + 32 * j < n) out[lane + 32 * j] = acc[j];
+  for (int j = 0; j < 4 / kW; ++j) {
+    const int col = kW * (l + lanes * j);
+    if (c0 + col < n) store_c<kW>(out + col, acc + kW * j);
   }
 }
 
@@ -138,33 +174,34 @@ __device__ __forceinline__ int rows_at(const int32_t* ends, int nr, int ne,
 }
 
 // One block a share: rows r0 .. r1 - 1 end in it (r0, r1 the rows wholly
-// consumed at its edges), its entries are k0 .. k1 - 1.
-template <typename P, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-spmm_csr_kernel(const P* __restrict__ rowptrs,
-                const int32_t* __restrict__ colinds,
-                const float* __restrict__ values, const float* __restrict__ b,
-                int64_t ldb, float* __restrict__ c, int n, int64_t nrows,
-                int64_t nnz, float* __restrict__ carry,
-                int32_t* __restrict__ carry_row) {
+// consumed at its edges), its entries are k0 .. k1 - 1.  kWarpRow: a warp
+// a row (lanes == 32), built apart so that its lane arithmetic folds away.
+template <typename P, int kW, bool kWarpRow>
+__device__ __forceinline__ void spmm_csr_share(
+    const P* __restrict__ rowptrs, const int64_t* __restrict__ edges,
+    const int32_t* __restrict__ colinds, const float* __restrict__ values,
+    const float* __restrict__ b, int64_t ldb, float* __restrict__ c, int n,
+    int lanes_arg, int64_t nrows, int64_t nnz, float* __restrict__ carry,
+    int32_t* __restrict__ carry_row) {
+  const int lanes = kWarpRow ? 32 : lanes_arg;
   __shared__ int32_t ends[kTile];  // row ends, relative to entry k0
   __shared__ int32_t cols[kTile];
   __shared__ float vals[kTile];
-  __shared__ float first[kWarps][kCols];  // a warp's first ended row
-  __shared__ float last[kWarps][kCols];   // a warp's unended tail
-  __shared__ int32_t first_row[kWarps];   // -1: the warp ended no row
-  __shared__ int64_t edge[2];
+  __shared__ float first[kPass];  // a unit's first ended row, by unit
+  __shared__ float last[kPass];   // a unit's unended tail, by unit
+  __shared__ int32_t first_row[kMaxUnits];  // -1: the unit ended no row
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int per_warp = 32 / lanes;  // units a warp
+  const int sub = lane / lanes, l = lane - sub * lanes;
+  const int units = kWarps * per_warp, unit = warp * per_warp + sub;
+  const int unit_items = kWarpItems / per_warp;
+  const int pass = 4 * lanes;  // columns of C a pass
+
   const int64_t total = nrows + nnz;
   const int64_t s = blockIdx.x;
   const int64_t d0 = s * kTile;
   const int64_t d1 = d0 + kTile < total ? d0 + kTile : total;
-  if (warp < 2) {
-    const int64_t r = merge_search(rowptrs, warp ? d1 : d0, nrows, nnz);
-    if (lane == 0) edge[warp] = r;
-  }
-  __syncthreads();
-  const int64_t r0 = edge[0], r1 = edge[1];
+  const int64_t r0 = edges[s], r1 = edges[s + 1];
   const int64_t k0 = d0 - r0;
   const int nr = int(r1 - r0);         // rows that end in the share
   const int ne = int(d1 - r1 - k0);    // entries in the share
@@ -180,54 +217,81 @@ spmm_csr_kernel(const P* __restrict__ rowptrs,
   const bool tail = nr ? ne > ends[nr - 1] : ne > 0;
   if (threadIdx.x == 0) carry_row[s] = tail ? int32_t(r1) : -1;
   const int n_items = nr + ne;
-  const int wd0 = warp * kWarpItems < n_items ? warp * kWarpItems : n_items;
-  const int wd1 = wd0 + kWarpItems < n_items ? wd0 + kWarpItems : n_items;
-  const int ra = rows_at(ends, nr, ne, wd0), rb = rows_at(ends, nr, ne, wd1);
+  const int ud0 = unit * unit_items < n_items ? unit * unit_items : n_items;
+  const int ud1 = ud0 + unit_items < n_items ? ud0 + unit_items : n_items;
+  const int ra = rows_at(ends, nr, ne, ud0), rb = rows_at(ends, nr, ne, ud1);
+  float* my_first = first + unit * pass;
+  float* my_last = last + unit * pass;
 
-  for (int c0 = 0; c0 < n; c0 += kCols) {
-    int ri = ra, ki = wd0 - ra, fr = -1;
-    const int k_stop = wd1 - rb;
+  for (int c0 = 0; c0 < n; c0 += pass) {
+    int ri = ra, ki = ud0 - ra, fr = -1;
+    const int k_stop = ud1 - rb;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     while (true) {
       const int stop = ri < rb ? ends[ri] : k_stop;  // row ri's last entry here
-      for (; ki + 4 <= stop; ki += 4)
-        accumulate<kVec, 4>(b, ldb, c0, n, lane, cols + ki, vals + ki, acc);
-      for (; ki < stop; ++ki)
-        accumulate<kVec, 1>(b, ldb, c0, n, lane, cols + ki, vals + ki, acc);
-      if (ri >= rb) break;  // the warp's tail: a later warp or share ends it
-      if (fr < 0) {         // may have parts in earlier warps: resolved below
+      for (; ki + kU <= stop; ki += kU)  // whole batches: no predicates
+        accumulate<kW>(b, ldb, c0, n, l, lanes, cols + ki, vals + ki, kU, acc);
+      if (ki < stop)
+        accumulate<kW>(b, ldb, c0, n, l, lanes, cols + ki, vals + ki, stop - ki,
+                       acc);
+      ki = stop;
+      if (ri >= rb) break;  // the unit's tail: a later unit or share ends it
+      if (fr < 0) {         // may have parts in earlier units: resolved below
         fr = ri;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) first[warp][col_of<kVec>(lane, j)] = acc[j];
+        for (int i = 0; i < 4; ++i) my_first[col_of<kW>(l, lanes, i)] = acc[i];
       } else {
-        store_row<kVec>(c, n, r0 + ri, c0, lane, acc);
+        store_row<kW>(c, n, r0 + ri, c0, l, lanes, acc);
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[i] = 0.f;
       ++ri;
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) last[warp][col_of<kVec>(lane, j)] = acc[j];
-    if (lane == 0) first_row[warp] = fr;
+    for (int i = 0; i < 4; ++i) my_last[col_of<kW>(l, lanes, i)] = acc[i];
+    if (l == 0) first_row[unit] = fr;
     __syncthreads();
 
-    // the rows cut between warps, in warp order: a warp's tail and the
-    // whole of any warp that ends no row belong to the next ended row
-    if (threadIdx.x < kCols) {
-      const int t = threadIdx.x;
+    // the rows cut between units, in unit order: a unit's tail and the
+    // whole of any unit that ends no row belong to the next ended row
+    for (int t = threadIdx.x; t < pass; t += kThreads) {
       float run = 0.f;
-      for (int w = 0; w < kWarps; ++w) {
-        if (first_row[w] >= 0) {
-          if (c0 + t < n) c[(r0 + first_row[w]) * n + c0 + t] = run + first[w][t];
-          run = last[w][t];
+      for (int u = 0; u < units; ++u) {
+        if (first_row[u] >= 0) {
+          if (c0 + t < n) __stcs(c + (r0 + first_row[u]) * n + c0 + t,
+                                 run + first[u * pass + t]);
+          run = last[u * pass + t];
         } else {
-          run += last[w][t];
+          run += last[u * pass + t];
         }
       }
       if (tail && c0 + t < n) carry[s * n + c0 + t] = run;
     }
     __syncthreads();  // the next pass reuses first, last and first_row
   }
+}
+
+#define SPMM_CSR_PARAMS                                                      \
+  const P *__restrict__ rowptrs, const int64_t *__restrict__ edges,          \
+      const int32_t *__restrict__ colinds, const float *__restrict__ values, \
+      const float *__restrict__ b, int64_t ldb, float *__restrict__ c, int n, \
+      int lanes, int64_t nrows, int64_t nnz, float *__restrict__ carry,      \
+      int32_t *__restrict__ carry_row
+#define SPMM_CSR_ARGS                                                        \
+  rowptrs, edges, colinds, values, b, ldb, c, n, lanes, nrows, nnz, carry,   \
+      carry_row
+
+template <typename P, int kW, bool kWarpRow>
+__global__ void __launch_bounds__(kThreads) spmm_csr_kernel(SPMM_CSR_PARAMS) {
+  spmm_csr_share<P, kW, kWarpRow>(SPMM_CSR_ARGS);
+}
+
+// A warp a row with 16 B loads: held to four blocks an SM (64 registers),
+// where ptxas spilled at 40 with no bound (and a bound on every build cost
+// n = 50 its residency).
+template <typename P>
+__global__ void __launch_bounds__(kThreads, 4) spmm_csr_kernel_row16(SPMM_CSR_PARAMS) {
+  spmm_csr_share<P, 4, true>(SPMM_CSR_ARGS);
 }
 
 // The second launch, a block a share: the first share of each run of
@@ -249,20 +313,28 @@ spmm_csr_carries(const float* __restrict__ carry,
   }
 }
 
-template <typename P>
-int launch(const P* rowptrs, const int32_t* colinds, const float* values,
-           const float* b, int64_t ldb, float* c, int n, int64_t nrows,
-           int64_t nnz, float* carry, int32_t* carry_row, int vec,
-           cudaStream_t stream) {
+template <typename P, int kW>
+int launch(const P* rowptrs, int64_t* edges, int search,
+           const int32_t* colinds, const float* values, const float* b,
+           int64_t ldb, float* c, int n, int lanes, int64_t nrows, int64_t nnz,
+           float* carry, int32_t* carry_row, cudaStream_t stream) {
   const int64_t n_shares = (nrows + nnz + kTile - 1) / kTile;
-  if (vec)
-    spmm_csr_kernel<P, true><<<dim3{static_cast<unsigned>(n_shares)}, kThreads,
-                               0, stream>>>(rowptrs, colinds, values, b, ldb, c,
-                                            n, nrows, nnz, carry, carry_row);
-  else
-    spmm_csr_kernel<P, false><<<dim3{static_cast<unsigned>(n_shares)}, kThreads,
-                                0, stream>>>(rowptrs, colinds, values, b, ldb,
-                                             c, n, nrows, nnz, carry, carry_row);
+  if (search) {
+    const cudaError_t err = share_edges(rowptrs, nrows, nnz, kTile, edges, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (lanes == 32) {
+    if constexpr (kW == 4)
+      spmm_csr_kernel_row16<P><<<dim3{static_cast<unsigned>(n_shares)},
+                                 kThreads, 0, stream>>>(SPMM_CSR_ARGS);
+    else
+      spmm_csr_kernel<P, kW, true><<<dim3{static_cast<unsigned>(n_shares)},
+                                     kThreads, 0, stream>>>(SPMM_CSR_ARGS);
+  } else
+    spmm_csr_kernel<P, kW, false><<<dim3{static_cast<unsigned>(n_shares)},
+                                    kThreads, 0, stream>>>(
+        rowptrs, edges, colinds, values, b, ldb, c, n, lanes, nrows, nnz, carry,
+        carry_row);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   spmm_csr_carries<<<dim3{static_cast<unsigned>(n_shares)}, kFixThreads, 0,
@@ -270,21 +342,46 @@ int launch(const P* rowptrs, const int32_t* colinds, const float* values,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename P>
+int launch_w(int width, const P* rowptrs, int64_t* edges, int search,
+             const int32_t* colinds, const float* values, const float* b,
+             int64_t ldb, float* c, int n, int lanes, int64_t nrows,
+             int64_t nnz, float* carry, int32_t* carry_row,
+             cudaStream_t stream) {
+  if (width == 4)
+    return launch<P, 4>(rowptrs, edges, search, colinds, values, b, ldb, c, n,
+                        lanes, nrows, nnz, carry, carry_row, stream);
+  if (width == 2)
+    return launch<P, 2>(rowptrs, edges, search, colinds, values, b, ldb, c, n,
+                        lanes, nrows, nnz, carry, carry_row, stream);
+  return launch<P, 1>(rowptrs, edges, search, colinds, values, b, ldb, c, n,
+                      lanes, nrows, nnz, carry, carry_row, stream);
+}
+
 }  // namespace
 
 // C = A @ B for an nrows-row CSR matrix of nnz entries (rowptrs[0] == 0,
 // rowptrs[nrows] == nnz) and B of n columns, rows ldb floats apart.  All
 // pointers are device pointers, 4 B aligned; values may be null (every
-// value 1); with vec, n and ldb are multiples of 4 and B and C lie on 16 B
-// boundaries.  carry holds ceil((nrows + nnz) / kTile) rows of n floats and
-// carry_row as many int32; C needs no zeroing.  Launches both kernels on
+// value 1).  edges holds the rows consumed at the ceil((nrows + nnz) /
+// kTile) + 1 share edges (ops/spmv.py:csr_shares), or, with search, room
+// for them, which a first launch fills.  width (4, 2 or 1) is the floats a
+// lane loads: with 4, n and ldb are multiples of 4 and B and C lie on 16 B
+// boundaries; with 2, multiples of 2 on 8 B ones.  lanes (4, 8, 16 or 32)
+// walk a row.  carry holds ceil((nrows + nnz) / kTile) rows of n floats and
+// carry_row as many int32; C needs no zeroing.  Launches the kernels on
 // `stream` and returns the CUDA error (0 on success).
-extern "C" int csrt_spmm_csr(const void* rowptrs, int ptr64,
-                             const void* colinds, const void* values,
-                             const void* b, int64_t ldb, void* c, int64_t n,
-                             int64_t nrows, int64_t nnz, void* carry,
-                             void* carry_row, int vec, void* stream) {
+extern "C" int csrt_spmm_csr(const void* rowptrs, int ptr64, void* edges,
+                             int search, const void* colinds,
+                             const void* values, const void* b, int64_t ldb,
+                             void* c, int64_t n, int64_t nrows, int64_t nnz,
+                             void* carry, void* carry_row, int width, int lanes,
+                             void* stream) {
   if (nrows <= 0 || nnz <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
+  if (!(lanes == 4 || lanes == 8 || lanes == 16 || lanes == 32) ||
+      !(width == 1 || width == 2 || width == 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto e = static_cast<int64_t*>(edges);
   const auto ci = static_cast<const int32_t*>(colinds);
   const auto v = static_cast<const float*>(values);
   const auto bp = static_cast<const float*>(b);
@@ -293,8 +390,8 @@ extern "C" int csrt_spmm_csr(const void* rowptrs, int ptr64,
   const auto cr = static_cast<int32_t*>(carry_row);
   const auto s = static_cast<cudaStream_t>(stream);
   if (ptr64)
-    return launch(static_cast<const int64_t*>(rowptrs), ci, v, bp, ldb, cp,
-                  int(n), nrows, nnz, cy, cr, vec, s);
-  return launch(static_cast<const int32_t*>(rowptrs), ci, v, bp, ldb, cp,
-                int(n), nrows, nnz, cy, cr, vec, s);
+    return launch_w(width, static_cast<const int64_t*>(rowptrs), e, search, ci, v,
+                    bp, ldb, cp, int(n), lanes, nrows, nnz, cy, cr, s);
+  return launch_w(width, static_cast<const int32_t*>(rowptrs), e, search, ci, v,
+                  bp, ldb, cp, int(n), lanes, nrows, nnz, cy, cr, s);
 }

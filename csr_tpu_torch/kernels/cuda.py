@@ -28,9 +28,11 @@ any launch (and from the structure's micro-row count):
   Queue 1 item 7;
 * f32 SpMV of a matrix (or, for ``mult_vec_t``, a transpose) whose
   (256, 1) micro-block layout would cost more than
-  :data:`_CSR_CROSSOVER` device bytes a stored entry runs the CSR-form
+  :data:`_CSR_CROSSOVER` device bytes a stored entry
+  (:data:`_CSR_CROSSOVER_LARGE` past the packer's range) runs the CSR-form
   kernel ``ops/spmv.py:spmv_csr`` (:func:`_spmv_route` says ``"csr"``):
-  one launch whatever the size, on the matrix's own tensors, with no
+  one call whatever the size (the kernel and its carry pass), on the
+  matrix's own tensors, and the rows at its share edges cached, with no
   layout built; for ``mult_vec_t`` on the transpose's CSR tensors, made
   once by the native host transpose and cached on the matrix (a
   ``layout-build-csr`` trace event).  The statistic is the layout's
@@ -119,18 +121,24 @@ def _needs_large(nrows: int, ncols: int) -> bool:
 #: the CSR-form route: SpMV of a matrix (or, for ``mult_vec_t``, of its
 #: transpose) whose micro-block layout at (256, 1) would cost more device
 #: bytes a stored entry than this (:func:`_layout_bytes_per_entry`) runs
-#: ``ops/spmv.py:spmv_csr`` on the matrix's own CSR tensors; the rest
-#: runs the micro-block kernel (``spmv_large`` past the packing range).
-#: Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 21, PERF.md):
-#: the micro-block kernel was the faster at every matrix up to 16.08 B an
-#: entry (1.5x at 12 entries a row over 4,096 columns; 2.5-3.6x at the
-#: flagship, 7.2, and the MovieLens-25M shape, 9.5-10.1, both ways; 1.7x
-#: at the 4.3M x 4,096 transpose, 12.07), the CSR-form kernel from 24.13
-#: on (1.33x at 4.3M x 4,096; 2.4-16x from 75.5 up); the ratio of the
-#: two, log-interpolated between 16.08 and 24.13, crosses 1 at 20.8.
-#: Below it a stripe of 128 rows reuses x's 256-column windows, which the
-#: CSR form's row-by-row gather cannot.
-_CSR_CROSSOVER = 20.0
+#: ``ops/spmv.py:spmv_csr`` on the matrix's own CSR tensors; the rest runs
+#: the micro-block kernel.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+#: (chip_smoke.py phase 21, PERF.md) with the row-summing CSR-form kernel: the
+#: micro-block kernel was the faster at every matrix that packs up to
+#: 24.12 B an entry (131,072 rows, 8-13 a row over 4,096 columns and 64
+#: and 96 over 2^16, 14.85-24.12 B: time ratios 0.59-0.81; the flagship
+#: and the MovieLens-25M shape, both ways, 0.30-0.41), the CSR form from
+#: 75.55 B on (2.4x at 327 a row over 2^20; 3.1-17x from 128.67 up); the
+#: ratio, log-interpolated between 24.12 and 75.55, crosses 1 near 30.
+_CSR_CROSSOVER = 30.0
+#: the same point for a matrix past the packer's range, whose micro-block
+#: form is ``spmv_large``'s chunks and panels (a launch each, a zeroed y,
+#: seconds of host packing), measured as above at 4,300,000 x 4,096 with
+#: 24, 16, 12 and 8 power-law entries a row: micro-block time / CSR-form
+#: time 0.52 and 0.83 at 8.62 and 12.06 B an entry, 1.30 and 1.52 at 16.08
+#: and 24.13 B (the realistic 8,388,608 x 2^20 case, 778.75 B, runs only
+#: on the CSR form); the ratio, log-interpolated, crosses 1 near 14
+_CSR_CROSSOVER_LARGE = 14.0
 #: device bytes of one micro-row: 128 f32 values, 128 u16 metadata and
 #: its i32 ``rbcb``
 _MICROROW_BYTES = microblock.LANE * (4 + 2) + 4
@@ -276,14 +284,15 @@ def _layout_bytes_per_entry(csr, transpose: bool, versions=None) -> float:
 def _spmv_route(csr, transpose: bool, versions=None) -> str:
     """The f32 SpMV route of ``csr`` (``mult_vec``) or of its transpose
     (``mult_vec_t``): ``"csr"`` where the micro-block layout would cost
-    more than :data:`_CSR_CROSSOVER` bytes a stored entry, else
-    ``"large"`` past :func:`_needs_large`'s limit, else
-    ``"microblock"``."""
-    if (csr.nnz and _layout_bytes_per_entry(csr, transpose, versions)
-            > _CSR_CROSSOVER):
-        return "csr"
+    more than :data:`_CSR_CROSSOVER` bytes a stored entry
+    (:data:`_CSR_CROSSOVER_LARGE` past :func:`_needs_large`'s limit), else
+    ``"large"`` past that limit, else ``"microblock"``."""
     nrows, ncols = (csr.ncols, csr.nrows) if transpose else (csr.nrows, csr.ncols)
-    return "large" if _needs_large(nrows, ncols) else "microblock"
+    large = _needs_large(nrows, ncols)
+    if (csr.nnz and _layout_bytes_per_entry(csr, transpose, versions)
+            > (_CSR_CROSSOVER_LARGE if large else _CSR_CROSSOVER)):
+        return "csr"
+    return "large" if large else "microblock"
 
 
 def _csr_form(csr):
@@ -315,6 +324,33 @@ def _build_csr_t(csr, transpose: bool):
 def _cached_csr_t(csr, versions=None):
     """The transpose's CSR tensors, cached on the matrix."""
     return _cached(csr, "_csr_t_cache", _build_csr_t, True, versions)
+
+
+def _build_spmv_edges(csr, transpose: bool):
+    rowptrs = _cached_csr_t(csr)[0] if transpose else csr.rowptrs
+    return _spmv_op.csr_shares(rowptrs, csr.nnz, _spmv_op.CSR_TILE)[0]
+
+
+def _build_spmm_edges(csr, transpose: bool):
+    rowptrs = _cached_csr_t(csr)[0] if transpose else csr.rowptrs
+    return _spmv_op.csr_shares(rowptrs, csr.nnz, _spmm_op.CSR_TILE)[0]
+
+
+def _spmv_edges(csr, transpose: bool, versions=None) -> torch.Tensor:
+    """The rows at the CSR-form SpMV's share edges of ``csr`` (or of its
+    transpose): ``ops/spmv.py:csr_shares``' first tensor, made by one
+    ``searchsorted`` and cached on the matrix, so the kernel searches
+    nothing."""
+    attr = "_spmv_edges_t_cache" if transpose else "_spmv_edges_cache"
+    return _cached(csr, attr, _build_spmv_edges, transpose, versions)
+
+
+def _spmm_edges(csr, transpose: bool = False, versions=None) -> torch.Tensor:
+    """The rows at the CSR-form SpMM's share edges of ``csr`` (or of its
+    transpose; its shares are smaller than SpMV's), cached as
+    :func:`_spmv_edges` are."""
+    attr = "_spmm_edges_t_cache" if transpose else "_spmm_edges_cache"
+    return _cached(csr, attr, _build_spmm_edges, transpose, versions)
 
 
 def _host_form(csr, transpose: bool):
@@ -461,7 +497,9 @@ def release_handle(h, drop_cache: bool = False):
     if drop_cache:
         for attr in ("_mb_layout_cache", "_mb_layout_t_cache",
                      "_mb_large_cache", "_mb_large_t_cache", "_csr_t_cache",
-                     "_mb_stat_cache"):
+                     "_mb_stat_cache", "_spmv_edges_cache",
+                     "_spmv_edges_t_cache", "_spmm_edges_cache",
+                     "_spmm_edges_t_cache"):
             setattr(h.csr, attr, None)
 
 
@@ -500,7 +538,12 @@ def _mult(h, v, transpose: bool):
     nrows, ncols = (c.ncols, c.nrows) if transpose else (c.nrows, c.ncols)
     ver = c._versions()  # read once for every cache this call looks up
     if _spmv_route(c, transpose, ver) == "csr":
-        a = _spmv_op.CsrForm(*(_cached_csr_t(c, ver) if transpose else _csr_form(c)))
+        # under torch.func.vmap the product is an SpMM, on SpMM's edges
+        batched = torch._C._functorch.maybe_current_level() is not None
+        a = _spmv_op.CsrForm(*(_cached_csr_t(c, ver) if transpose else _csr_form(c)),
+                             edges=_spmv_edges(c, transpose, ver),
+                             spmm_edges=(_spmm_edges(c, transpose, ver)
+                                         if batched else None))
     elif _needs_large(nrows, ncols):
         a = _cached_large(c, transpose, ver)
     else:
@@ -577,19 +620,16 @@ def _matmul_f32(a, b):
 #: runs the micro-block kernel (``spmm_large`` past the packing range).
 #: (B width, bytes an entry) points, log-interpolated in the width.
 #: Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 22,
-#: its crossover sweep of 131,072-row matrices, two processes that agreed
-#: within 1%; PERF.md).  At n = 50 the micro-block kernel was the faster
-#: up to 21.44 B an entry (time ratio 0.97) over 4,096 columns and up to
-#: 19.30 (0.94) over 2^16, the CSR form at 24.12 (1.03 and 1.08); the
-#: ratio, log-interpolated, crosses 1 at 22.7 and 21.2: 22.  At n = 256
-#: the CSR form won at every sweep matrix from 8.27 B up (1.16-1.46 over
-#: 4,096 columns, 1.005-1.05 over 2^16), tied at the MovieLens-25M shape
-#: (10.13 B, 1.008) and lost at the flagship (7.18, 0.97) and at an
-#: 8192^2 matrix of 20 entries a row (9.65; 0.92, and 0.82 at n = 1,024
-#: and 8,192): bytes an entry alone do not separate these.  The point is
-#: 11, between the MovieLens shape, which stays on the micro-block kernel
-#: as the flagship does, and the next sweep matrix (12.06, 1.33).
-_SPMM_CSR_CROSSOVER = ((50, 22.0), (256, 11.0))
+#: its crossover sweep of 131,072-row matrices and phase 9's 8192^2
+#: operand, PERF.md) with the CSR-form kernel that walks a row with a
+#: sub-warp: at n = 50 the CSR form was the faster at every sweep matrix
+#: from 8.27 B an entry (time ratios 1.01-1.87, the 8192^2 operand the
+#: most), at n = 256 over 4,096 columns (1.15-1.49), tied over 2^16
+#: (1.00-1.05); the flagship (7.18 B; 0.98) and the MovieLens-25M shape
+#: (10.13 B; 1.00-1.02) were not.  The point at both widths is 11, above
+#: those two and phase 9's 8192^2 operand (9.65 B), whose main paths run
+#: the micro-block kernel, and below the 12.06 B matrix (1.27 and 1.35).
+_SPMM_CSR_CROSSOVER = ((50, 11.0), (256, 11.0))
 
 
 def _spmm_crossover(n: int) -> float:
@@ -625,7 +665,7 @@ def _sparse_times_dense(h, b, op: str):
     trace(op, route="csr" if route == "csr" else "kernel",
           shape=(c.nrows, c.ncols), n=n)
     if route == "csr":
-        return _spmm_op.spmm_csr(*_csr_form(c), b)
+        return _spmm_op.spmm_csr(*_csr_form(c), b, edges=_spmm_edges(c, False, ver))
     if route == "large":
         return _spmm_op.spmm_large(_cached_large(c, False, ver), b)
     return _spmm_op.spmm(_cached_layout(c, ver), b)

@@ -43,13 +43,14 @@ ENTRIES = {
     # x, x_stride, y, y_stride, grid, shift, nrows, stream
     "spmv_bucket": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _vp, _i64, _vp,
                     _i64, _i64, _i32, _i32, _vp],
-    # rowptrs, ptr64, colinds, values (or NULL), x, y, nrows, nnz, zeroed,
-    # stream
-    "spmv_csr": [_vp, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _i32, _vp],
-    # rowptrs, ptr64, colinds, values (or NULL), b, ldb, c, n, nrows, nnz,
-    # carry, carry_row, vec, stream
-    "spmm_csr": [_vp, _i32, _vp, _vp, _vp, _i64, _vp, _i64, _i64, _i64, _vp,
-                 _vp, _i32, _vp],
+    # rowptrs, ptr64, edges, search, colinds, values (or NULL), x, y, nrows,
+    # nnz, zeroed, carry, carry_row, slots, stream
+    "spmv_csr": [_vp, _i32, _vp, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _i32,
+                 _vp, _vp, _i64, _vp],
+    # rowptrs, ptr64, edges, search, colinds, values (or NULL), b, ldb, c, n,
+    # nrows, nnz, carry, carry_row, width, lanes, stream
+    "spmm_csr": [_vp, _i32, _vp, _i32, _vp, _vp, _vp, _i64, _vp, _i64, _i64,
+                 _i64, _vp, _vp, _i32, _i32, _vp],
 }
 
 #: loaded libraries by kernel name
@@ -129,30 +130,38 @@ def spmv_bucket(vals, meta, rbcb, held, groups, x, y, grid: int,
             shift, nrows, torch.cuda.current_stream(y.device).cuda_stream)
 
 
-def spmv_csr(rowptrs, colinds, values, x, y, zeroed: bool) -> None:
-    """Launch the CSR-form SpMV kernel, ``y += A @ x`` read from the
-    matrix's own tensors (``values`` None: every value 1), on the current
-    stream; with ``zeroed`` the caller has zeroed ``y``.  The caller has
-    checked the tensors."""
+def spmv_csr(rowptrs, edges, search: bool, colinds, values, x, y,
+             zeroed: bool, carry, carry_row) -> None:
+    """Launch the CSR-form SpMV kernel, ``y = A @ x`` (``zeroed``) or
+    ``y += A @ x`` read from the matrix's own tensors (``values`` None:
+    every value 1), and its carry pass, on the current stream.  ``edges``
+    holds the rows at the share edges, or with ``search`` room for them,
+    which a first launch fills; ``carry`` (f32) and ``carry_row`` (int64)
+    are its scratch, an entry a block.  The caller has checked the
+    tensors."""
     _launch("spmv_csr", rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64),
-            colinds.data_ptr(), None if values is None else values.data_ptr(),
-            x.data_ptr(), y.data_ptr(), rowptrs.shape[0] - 1, colinds.shape[0],
-            int(zeroed), torch.cuda.current_stream(y.device).cuda_stream)
+            edges.data_ptr(), int(search), colinds.data_ptr(),
+            None if values is None else values.data_ptr(), x.data_ptr(),
+            y.data_ptr(), rowptrs.shape[0] - 1, colinds.shape[0], int(zeroed),
+            carry.data_ptr(), carry_row.data_ptr(), carry_row.shape[0],
+            torch.cuda.current_stream(y.device).cuda_stream)
 
 
-def spmm_csr(rowptrs, colinds, values, b, c, carry, carry_row,
-             vec: bool) -> None:
+def spmm_csr(rowptrs, edges, search: bool, colinds, values, b, c, carry,
+             carry_row, width: int, lanes: int) -> None:
     """Launch the CSR-form SpMM kernel, ``C = A @ B`` read from the
     matrix's own tensors (``values`` None: every value 1), and its carry
-    pass, on the current stream; ``carry`` and ``carry_row`` are its
-    scratch, a row a share; with ``vec`` it takes 16 B loads of B and
-    stores of C.  The caller has checked the tensors."""
+    pass, on the current stream.  ``edges`` holds the rows at the share
+    edges, or with ``search`` room for them, which a first launch fills;
+    ``carry`` and ``carry_row`` are its scratch, a row a share; a lane
+    loads ``width`` floats of B at a time and ``lanes`` lanes walk a row.
+    The caller has checked the tensors."""
     _launch("spmm_csr", rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64),
-            colinds.data_ptr(), None if values is None else values.data_ptr(),
-            b.data_ptr(), b.stride(0), c.data_ptr(), c.shape[1],
-            rowptrs.shape[0] - 1, colinds.shape[0], carry.data_ptr(),
-            carry_row.data_ptr(), int(vec),
-            torch.cuda.current_stream(c.device).cuda_stream)
+            edges.data_ptr(), int(search), colinds.data_ptr(),
+            None if values is None else values.data_ptr(), b.data_ptr(),
+            b.stride(0), c.data_ptr(), c.shape[1], rowptrs.shape[0] - 1,
+            colinds.shape[0], carry.data_ptr(), carry_row.data_ptr(), width,
+            lanes, torch.cuda.current_stream(c.device).cuda_stream)
 
 
 def spmv_bucket_occupancy() -> tuple:

@@ -37,7 +37,7 @@ import torch
 
 from .microblock import (ACC_GROUP, LANE, SLOT_CAP, MicroBlockLayout,
                          check_on_card)
-from .spmv import check_csr_operands, csr_parts
+from .spmv import check_csr_operands, csr_parts, n_shares
 
 #: number of launches of the CUDA kernel (plain-version calls not counted)
 launches = 0
@@ -47,6 +47,8 @@ csr_launches = 0
 #: merge items (row ends and stored entries) in a block's share of the
 #: CSR-form kernel: its ``kWarps * kWarpItems`` (``csrc/spmm_csr.cu``)
 CSR_TILE = 1024
+#: lanes that may walk a row of the CSR-form kernel, fewest first
+CSR_LANES = (4, 8, 16, 32)
 
 #: elements of B's rows gathered at once by :func:`scatter_rows` (256 MB
 #: of f32), so the plain version's temporaries stay near 1 GB at any size
@@ -300,8 +302,9 @@ def spmm_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
     ``values * B[colinds]`` (every value 1 when ``values`` is None), a row
     cut by a share's edge in one part a share (``ops/spmv.py:csr_parts``);
     then the parts are added into their rows, which is what the kernel's
-    carries do.  Entries go in chunks (:func:`scatter_rows`).  Returns f32
-    ``(nrows, n)`` on the tensors' device."""
+    carries do.  Every row is a sum of its own products only: empty rows
+    are exact zeros.  Entries go in chunks (:func:`scatter_rows`).
+    Returns f32 ``(nrows, n)`` on the tensors' device."""
     dev = colinds.device
     nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
     b = b.to(device=dev, dtype=torch.float32)
@@ -317,21 +320,40 @@ def spmm_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
     return c.index_add_(0, rows, sums)
 
 
+def csr_plan(n: int, ldb: int, align: int) -> tuple:
+    """How the CSR-form kernel walks C ``n`` columns wide from a B whose
+    rows lie ``ldb`` floats apart on an ``align``-byte boundary (C is
+    contiguous, from the allocator): ``(width, lanes)``, the floats a lane
+    loads at a time (4 where ``n`` and ``ldb`` are multiples of 4 and B
+    lies on 16 B, 2 where they are even and it lies on 8 B, else 1) and
+    the lanes that walk a row, the fewest of :data:`CSR_LANES` whose 4
+    columns a lane cover ``n`` (32 past 128 columns, in passes)."""
+    width = next(w for w in (4, 2, 1)
+                 if n % w == 0 and ldb % w == 0 and align % (4 * w) == 0)
+    lanes = next((k for k in CSR_LANES if 4 * k >= n), CSR_LANES[-1])
+    return width, lanes
+
+
 def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
-             values: torch.Tensor | None, b: torch.Tensor) -> torch.Tensor:
+             values: torch.Tensor | None, b: torch.Tensor,
+             edges: torch.Tensor | None = None) -> torch.Tensor:
     """``A @ B`` for a matrix in CSR form, read from its own tensors:
     ``rowptrs`` int32 or int64 (``rowptrs[0] == 0``, the last the entry
     count), ``colinds`` int32, ``values`` f32 or None (every value 1),
     contiguous on one device with ``b`` (``(ncols, n)``; another dtype is
-    cast to f32); returns f32 ``(nrows, n)``.
+    cast to f32); returns f32 ``(nrows, n)``.  ``edges`` are the rows at
+    the share edges (``ops/spmv.py:csr_shares(rowptrs, nnz, CSR_TILE)[0]``,
+    which ``kernels/cuda.py`` caches on the matrix); without them the
+    kernel's first launch finds them.
 
     On CUDA tensors ``csrc/spmm_csr.cu`` runs: one launch over the shares
-    and one that adds the carries of rows cut by a share's edge, counted
-    once in :data:`csr_launches`; B is read as it is (16 B loads where its
-    rows allow, else scalar ones), with no padded copy; a build or launch
-    failure raises.  On CPU tensors :func:`spmm_csr_reference` runs."""
+    (:func:`csr_plan`'s lanes a row and load width; B read as it is, with
+    no padded copy) and one that adds the carries of rows cut by a share's
+    edge, counted once in :data:`csr_launches`; a build or launch failure
+    raises.  On CPU tensors :func:`spmm_csr_reference` runs."""
     global csr_launches
-    check_csr_operands(rowptrs, colinds, values, b, x_dim=2)
+    check_csr_operands(rowptrs, colinds, values, b, x_dim=2, edges=edges,
+                       tile=CSR_TILE)
     dev = colinds.device
     if dev.type == "cpu":
         return spmm_csr_reference(rowptrs, colinds, values, b)
@@ -349,13 +371,18 @@ def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
     if nnz == 0 or n == 0:
         return torch.zeros(nrows, n, dtype=torch.float32, device=dev)
     c = torch.empty(nrows, n, dtype=torch.float32, device=dev)  # every row written
-    vec = n % 4 == 0 and b.stride(0) % 4 == 0 and b.data_ptr() % 16 == 0
-    n_shares = -(-(nrows + nnz) // CSR_TILE)
-    carry = torch.empty(n_shares, n, dtype=torch.float32, device=dev)
-    carry_row = torch.empty(n_shares, dtype=torch.int32, device=dev)
+    align = b.data_ptr() & -b.data_ptr()
+    width, lanes = csr_plan(n, b.stride(0), align)
+    shares = n_shares(nrows, nnz, CSR_TILE)
+    carry = torch.empty(shares, n, dtype=torch.float32, device=dev)
+    carry_row = torch.empty(shares, dtype=torch.int32, device=dev)
+    search = edges is None
+    if search:
+        edges = torch.empty(shares + 1, dtype=torch.int64, device=dev)
     from . import _cuda
 
     with torch.cuda.device(dev):
-        _cuda.spmm_csr(rowptrs, colinds, values, b, c, carry, carry_row, vec)
+        _cuda.spmm_csr(rowptrs, edges, search, colinds, values, b, c, carry,
+                       carry_row, width, lanes)
     csr_launches += 1
     return c

@@ -28,7 +28,8 @@ Micro-block SpMV (counterpart of :func:`csr_tpu.ops.spmv.spmv`).
   reads the matrix's own CSR tensors (no packing), for matrices whose
   micro-block layout is mostly padding.  :func:`spmv_csr_reference` is
   its plain PyTorch version, split as the kernel splits
-  (:func:`csr_shares`), and :data:`csr_launches` its launch count.
+  (:func:`csr_shares`, whose rows at the share edges the kernel reads),
+  and :data:`csr_launches` its launch count.
 """
 
 from __future__ import annotations
@@ -50,9 +51,13 @@ launches = 0
 bucket_launches = 0
 #: number of launches of the CSR-form CUDA kernel
 csr_launches = 0
-#: merge items (row ends and stored entries) in a block's share of the
-#: CSR-form kernel: its ``kThreads * kItems`` (``csrc/spmv_csr.cu``)
+#: merge items (row ends and stored entries) in a share of the CSR-form
+#: kernel: its ``kTile`` (``csrc/spmv_csr.cu``)
 CSR_TILE = 2048
+#: blocks an SM the CUDA runtime may hold of a kernel (Hopper's limit): the
+#: CSR-form SpMV's persistent grid is at most this many an SM, and its
+#: scratch, an entry a block, is sized by it
+MAX_BLOCKS_PER_SM = 32
 #: blocks an SM of the bucket kernel's grid, and warps a block: the
 #: occupancy its one build was chosen for (PERF.md, PR 5), which
 #: chip_smoke's first phase asserts
@@ -305,14 +310,16 @@ def spmv_large(chunks, ncols: int, x: torch.Tensor) -> torch.Tensor:
 
 
 def csr_shares(rowptrs: torch.Tensor, nnz: int, tile: int = CSR_TILE):
-    """The CSR-form kernel's split: the merge of the row ends with the
+    """The CSR-form kernels' split: the merge of the row ends with the
     entry indices (merge path, Merrill & Garland) cut into shares of
-    ``tile`` items, one a block.  Returns int64 ``(rows, entries)`` at the
+    ``tile`` items.  Returns int64 ``(rows, entries)`` at the
     ``ceil((nrows + nnz) / tile) + 1`` share edges: share ``s`` holds the
     row ends of rows ``rows[s] .. rows[s + 1] - 1`` and the entries
     ``entries[s] .. entries[s + 1] - 1``.  At diagonal ``d`` the rows
-    consumed are those with ``rowptrs[i + 1] + i + 1 <= d`` (the kernel's
-    ``merge_search``)."""
+    consumed are those with ``rowptrs[i + 1] + i + 1 <= d`` (one
+    ``searchsorted``; ``csrc/merge_path.cuh:merge_search`` is the same
+    search on the card).  ``rows`` is what the kernels read as their
+    ``edges``."""
     nrows = rowptrs.shape[0] - 1
     dev = rowptrs.device
     total = nrows + nnz
@@ -320,6 +327,12 @@ def csr_shares(rowptrs: torch.Tensor, nnz: int, tile: int = CSR_TILE):
     ends = rowptrs[1:].to(torch.int64) + torch.arange(1, nrows + 1, device=dev)
     rows = torch.searchsorted(ends, d, right=True)
     return rows, d - rows
+
+
+def n_shares(nrows: int, nnz: int, tile: int) -> int:
+    """Shares of ``tile`` merge items of an ``nrows``-row matrix of
+    ``nnz`` entries (:func:`csr_shares` has one more edge)."""
+    return -(-(nrows + nnz) // tile)
 
 
 def csr_parts(rowptrs: torch.Tensor, nnz: int, tile: int):
@@ -345,9 +358,11 @@ def spmv_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
     it: the products ``values * x[colinds]`` (every value 1 when
     ``values`` is None); each share of :func:`csr_shares`'s sums its
     rows' products (a row inside one share whole, a row cut by a share's
-    edge in one part a share, :func:`csr_parts`); then the parts are
-    added into their rows, which is the fix-up the kernel makes with
-    atomics.  Returns f32 on the tensors' device."""
+    edge in one part a share, :func:`csr_parts`); then the parts of each
+    row are added together, as the kernel carries a cut row's sum into
+    the block's next share and, between blocks, adds the blocks' carries
+    in a second launch.  Every row is a sum of its own products only:
+    empty rows are exact zeros.  Returns f32 on the tensors' device."""
     dev = colinds.device
     nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
     y = torch.zeros(nrows, dtype=torch.float32, device=dev)
@@ -364,10 +379,11 @@ def spmv_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
 
 
 def check_csr_operands(rowptrs, colinds, values, x, out=None,
-                       x_dim: int = 1) -> None:
+                       x_dim: int = 1, edges=None, tile: int = CSR_TILE) -> None:
     """Raise ValueError unless the CSR tensors and the operand ``x`` (of
-    ``x_dim`` dimensions; ``out`` the optional SpMV accumulator) are as
-    the CSR-form kernels take them."""
+    ``x_dim`` dimensions; ``out`` the optional SpMV accumulator; ``edges``
+    the optional rows at the share edges of ``tile`` items) are as the
+    CSR-form kernels take them."""
     dev = colinds.device
     nrows = rowptrs.shape[0] - 1 if rowptrs.dim() == 1 else -1
     if rowptrs.dtype not in (torch.int32, torch.int64) or nrows < 0:
@@ -385,31 +401,43 @@ def check_csr_operands(rowptrs, colinds, values, x, out=None,
     if out is not None and (out.shape != (nrows,) or out.dtype != torch.float32):
         raise ValueError(f"out: expected float32 ({nrows},), got {out.dtype} "
                          f"{tuple(out.shape)}")
+    if edges is not None:
+        want = (n_shares(nrows, colinds.shape[0], tile) + 1,)
+        if edges.dtype != torch.int64 or tuple(edges.shape) != want:
+            raise ValueError(f"edges: expected int64 {want}, got {edges.dtype} "
+                             f"{tuple(edges.shape)}")
     for name, t in (("rowptrs", rowptrs), ("values", values), ("x", x),
-                    ("out", out)):
+                    ("out", out), ("edges", edges)):
         if t is not None and t.device != dev:
             raise ValueError(f"{name} on {t.device}, colinds on {dev}")
     for name, t in (("rowptrs", rowptrs), ("colinds", colinds),
-                    ("values", values), ("out", out)):
+                    ("values", values), ("out", out), ("edges", edges)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
 def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
              values: torch.Tensor | None, x: torch.Tensor,
-             out: torch.Tensor | None = None) -> torch.Tensor:
+             out: torch.Tensor | None = None,
+             edges: torch.Tensor | None = None) -> torch.Tensor:
     """``A @ x`` for a matrix in CSR form, read from its own tensors:
     ``rowptrs`` int32 or int64 (``rowptrs[0] == 0``, the last the entry
     count), ``colinds`` int32, ``values`` f32 or None (every value 1),
     all contiguous on one device with ``x``; returns f32 of length
     ``nrows``.  With ``out`` (f32, contiguous, ``nrows`` long) the product
-    is added into it and it is returned.
+    is added into it and it is returned.  ``edges`` are the rows at the
+    share edges (``csr_shares(rowptrs, nnz)[0]``, which ``kernels/cuda.py``
+    caches on the matrix); without them the kernel's first launch finds
+    them.
 
-    On CUDA tensors one launch of ``csrc/spmv_csr.cu`` whatever the size,
-    counted in :data:`csr_launches`; a build or launch failure raises.  On
-    CPU tensors :func:`spmv_csr_reference` runs."""
+    On CUDA tensors ``csrc/spmv_csr.cu`` runs: its persistent blocks over
+    runs of shares, then a launch that adds the carries of rows cut
+    between blocks; every row is written, so the result needs no zeroing
+    (``torch.empty``) and is bitwise repeatable.  The call counts once in
+    :data:`csr_launches`; a build or launch failure raises.  On CPU
+    tensors :func:`spmv_csr_reference` runs."""
     global csr_launches
-    check_csr_operands(rowptrs, colinds, values, x, out)
+    check_csr_operands(rowptrs, colinds, values, x, out, edges=edges)
     dev = colinds.device
     if dev.type == "cpu":
         y = spmv_csr_reference(rowptrs, colinds, values, x)
@@ -421,27 +449,38 @@ def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
             if t is not None]
     if any(p % 4 for p in ptrs):
         raise ValueError("rowptrs, colinds, values, x and out must be 4 B aligned")
-    nrows = rowptrs.shape[0] - 1
-    y = torch.zeros(nrows, dtype=torch.float32, device=dev) if out is None else out
-    if colinds.shape[0] == 0:
-        return y
+    nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
+    if nnz == 0:
+        return torch.zeros(nrows, dtype=torch.float32, device=dev) if out is None else out
+    y = torch.empty(nrows, dtype=torch.float32, device=dev) if out is None else out
+    slots = MAX_BLOCKS_PER_SM * _sm_count(dev)
+    search = edges is None
+    # the blocks' carries (f32 in int64 slots) and rows; the edges' room
+    scratch = torch.empty(2 * slots + search * (n_shares(nrows, nnz, CSR_TILE) + 1),
+                          dtype=torch.int64, device=dev)
     from . import _cuda
 
     with torch.cuda.device(dev):
-        _cuda.spmv_csr(rowptrs, colinds, values, x, y, zeroed=out is None)
+        _cuda.spmv_csr(rowptrs, scratch[2 * slots:] if search else edges, search,
+                       colinds, values, x, y, out is None,
+                       scratch[slots:2 * slots], scratch[:slots])
     csr_launches += 1
     return y
 
 
 @dataclass(frozen=True)
 class CsrForm:
-    """A matrix's CSR tensors as :func:`spmv_csr` reads them, for
+    """A matrix's CSR tensors as :func:`spmv_csr` reads them, and the rows
+    at its share edges for :func:`spmv_csr` and, under ``torch.func.vmap``,
+    for ``ops/spmm.py:spmm_csr`` (None: the kernel finds them), for
     :func:`product` (a plain class, not a pytree node: ``torch.func``
     passes it through as one argument)."""
 
     rowptrs: torch.Tensor
     colinds: torch.Tensor
     values: torch.Tensor | None
+    edges: torch.Tensor | None = None
+    spmm_edges: torch.Tensor | None = None
 
 
 class _Product(torch.autograd.Function):
@@ -455,7 +494,7 @@ class _Product(torch.autograd.Function):
         if isinstance(a, MicroBlockLayout):
             return spmv(a, x)
         if isinstance(a, CsrForm):
-            return spmv_csr(a.rowptrs, a.colinds, a.values, x)
+            return spmv_csr(a.rowptrs, a.colinds, a.values, x, edges=a.edges)
         return spmv_large(a, ncols, x)
 
     @staticmethod
@@ -478,7 +517,8 @@ class _Product(torch.autograd.Function):
         if isinstance(a, CsrForm):
             trace(op, route="csr", shape=(a.rowptrs.shape[0] - 1, ncols),
                   n=b.shape[1])
-            return spmm_op.spmm_csr(a.rowptrs, a.colinds, a.values, b), 1
+            return spmm_op.spmm_csr(a.rowptrs, a.colinds, a.values, b,
+                                    edges=a.spmm_edges), 1
         if isinstance(a, MicroBlockLayout):
             trace(op, route="kernel", shape=(a.nrows, a.ncols), n=b.shape[1])
             return spmm_op.spmm(a, b), 1

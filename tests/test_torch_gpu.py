@@ -437,6 +437,7 @@ def test_spmv_large_on_card(cuda_device, monkeypatch):
 
     monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 2)
     monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))  # the micro-block route
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER_LARGE", float("inf"))
     a = random_matrix(512, 640, 0.03, seed=72)
     c = CSR.from_scipy(a, device=cuda_device)
     rng = np.random.default_rng(73)
@@ -593,6 +594,36 @@ def _csr_views(a, offset, ptr_dtype, device, structure_only=False):
     return rp, ci, None if structure_only else v
 
 
+def _spmv_csr_into_nan(rp, ci, v, xd):
+    """The CSR-form SpMV kernel's zeroed path (``spmv_csr``'s launch, with
+    ``csr_shares``' edges) into a y filled with NaN: a row it does not
+    write shows."""
+    from csr_tpu_torch.ops import _cuda
+
+    y = torch.full((rp.shape[0] - 1,), float("nan"), device=rp.device)
+    slots = spmv.MAX_BLOCKS_PER_SM * spmv._sm_count(y.device)
+    scratch = torch.empty(2 * slots, dtype=torch.int64, device=y.device)
+    _cuda.spmv_csr(rp, spmv.csr_shares(rp, ci.shape[0])[0], False, ci, v, xd, y,
+                   True, scratch[slots:], scratch[:slots])
+    return y
+
+
+def _spmm_csr_into_nan(rp, ci, v, bd):
+    """The CSR-form SpMM kernel (``spmm_csr``'s launch, ``csr_plan``'s lanes
+    and load width) into a C filled with NaN."""
+    from csr_tpu_torch.ops import _cuda
+
+    nrows, nnz, n = rp.shape[0] - 1, ci.shape[0], bd.shape[1]
+    c = torch.full((nrows, n), float("nan"), device=bd.device)
+    shares = spmv.n_shares(nrows, nnz, spmm.CSR_TILE)
+    width, lanes = spmm.csr_plan(n, bd.stride(0), bd.data_ptr() & -bd.data_ptr())
+    _cuda.spmm_csr(rp, spmv.csr_shares(rp, nnz, spmm.CSR_TILE)[0], False, ci, v,
+                   bd, c, torch.empty(shares, n, device=bd.device),
+                   torch.empty(shares, dtype=torch.int32, device=bd.device),
+                   width, lanes)
+    return c
+
+
 def _long_row_matrix(seed):
     """600 x 9000 with one full row (4.4 shares of merge items), most rows
     empty, and a block of 30 denser rows."""
@@ -629,6 +660,9 @@ def test_csr_kernel_matches_reference_on_card(case, offset, ptr_dtype,
     y_ref = spmv.spmv_csr_reference(rp, ci, v, xd)
     torch.cuda.synchronize()
     assert spmv.csr_launches == before + 2
+    # every row written (no memset of y), and bitwise repeatable
+    assert torch.equal(_spmv_csr_into_nan(rp, ci, v, xd), y)
+    assert torch.equal(spmv.spmv_csr(rp, ci, v, xd), y)
     assert_spmv_close(y.cpu().numpy(), y_ref.cpu().numpy(), Scipy(a), x)
     assert_spmv_close(y.cpu().numpy(), a.astype(np.float64) @ x, Scipy(a), x)
     assert_spmv_close((out - 0.5).cpu().numpy(), a.astype(np.float64) @ x,
@@ -636,13 +670,17 @@ def test_csr_kernel_matches_reference_on_card(case, offset, ptr_dtype,
 
 
 def test_csr_kernel_many_shares_a_block_on_card(cuda_device):
-    """A matrix of more than two waves of resident blocks' shares
+    """A matrix of more shares than the persistent grid has blocks
     (5,000,000 rows of 0 to 4 entries: about 7,300 shares of 2048 merge
-    items), so each block takes several shares in a row, in one launch;
-    empty rows give 0."""
+    items), so each block takes a run of shares, rows cut at share and
+    at block edges, rows of 60,000 entries over several blocks' runs and
+    one of 4,096 entries; empty rows give exact zeros; every row written
+    (a y of NaN) and two runs bitwise equal."""
     rng = np.random.default_rng(83)
     n = 5_000_000
     lengths = rng.integers(0, 5, n)
+    lengths[[10, 2_500_000, n - 1]] = 60_000
+    lengths[3_000_000] = 4096
     rp = np.zeros(n + 1, np.int64)
     np.cumsum(lengths, out=rp[1:])
     cols = rng.integers(0, 1 << 20, int(rp[-1])).astype(np.int32)
@@ -655,6 +693,8 @@ def test_csr_kernel_many_shares_a_block_on_card(cuda_device):
     y_ref = spmv.spmv_csr_reference(rpd, ci, v, xd)
     torch.cuda.synchronize()
     assert not y[torch.from_numpy(lengths == 0).to(cuda_device)].any()
+    assert torch.equal(_spmv_csr_into_nan(rpd, ci, v, xd), y)
+    assert torch.equal(spmv.spmv_csr(rpd, ci, v, xd), y)
     # assert_spmv_close's bound, on the sparse matrix (it densifies)
     spmv_share(y, y_ref.cpu().numpy(), a, x)
     spmv_share(y, a.astype(np.float64) @ x, a, x)
@@ -703,17 +743,20 @@ def test_csr_routed_mult_vec_is_one_launch_on_card(cuda_device):
 
 @pytest.mark.parametrize("offset,ptr_dtype,structure_only,b_offset,b_pad", [
     ((0, 0), torch.int32, False, 0, 0), ((1, 1), torch.int64, False, 0, 4),
-    ((2, 0), torch.int32, True, 1, 0), ((3, 3), torch.int64, False, 3, 3)])
-@pytest.mark.parametrize("n", [1, 3, 50, 128, 257])
+    ((2, 0), torch.int32, True, 1, 0), ((3, 3), torch.int64, False, 3, 3),
+    ((0, 0), torch.int32, False, 2, 0)])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 8, 16, 17, 32, 33, 50, 64, 65, 128,
+                               129, 256, 257])
 @pytest.mark.parametrize("case", ["random", "long row"])
 def test_spmm_csr_kernel_matches_reference_on_card(case, n, offset, ptr_dtype,
                                                    structure_only, b_offset,
                                                    b_pad, cuda_device):
     """The CSR-form SpMM kernel against spmm_csr_reference and scipy: int32
     and int64 row pointers, colinds and values off a 16 B boundary,
-    structure-only, and a B off a 16 B boundary or with padded rows (its
-    16 B path where n % 4 == 0 and B's rows allow, else the scalar one);
-    a row of 4.4 shares (the "long row" case) and empty rows."""
+    structure-only, and a B 16 B, 8 B or 4 B aligned or with padded rows
+    (csr_plan's 16 B, 8 B and 4 B loads) at every lanes-a-row (4, 8, 16,
+    32); a row of 4.4 shares (the "long row" case) and empty rows; every
+    row written (a C of NaN) and two runs bitwise equal."""
     a = (random_matrix(3000, 5000, 0.004, seed=87, big_group=False)
          if case == "random" else _long_row_matrix(88))
     if structure_only:
@@ -729,6 +772,8 @@ def test_spmm_csr_kernel_matches_reference_on_card(case, n, offset, ptr_dtype,
     c_ref = spmm.spmm_csr_reference(rp, ci, v, bd)
     torch.cuda.synchronize()
     assert spmm.csr_launches == before + 1
+    assert torch.equal(_spmm_csr_into_nan(rp, ci, v, bd), c)
+    assert torch.equal(spmm.spmm_csr(rp, ci, v, bd), c)
     assert c.shape == (a.shape[0], n) and c.dtype == torch.float32
     assert_product_close(c.cpu().numpy(), c_ref.cpu().numpy())
     assert_product_close(c.cpu().numpy(), a.astype(np.float64) @ b)

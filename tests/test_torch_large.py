@@ -75,6 +75,7 @@ def test_spmv_large_matches_reference(structure_only, monkeypatch):
     monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 2)
     monkeypatch.setattr(ref_pallas, "_VMEM_WINDOWS", 2)
     monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))  # the micro-block route
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER_LARGE", float("inf"))
     m = _matrix(structure_only)
     vals = None if structure_only else m.data
     c = CSR(512, 640, m.nnz, m.indptr, m.indices, vals, device="cpu")
@@ -140,6 +141,7 @@ def test_routing_follows_the_window_budget(monkeypatch):
 def test_large_layouts_dropped_with_the_cache(monkeypatch):
     monkeypatch.setattr(cuda_k, "_LARGE_WINDOWS", 2)
     monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))  # the micro-block route
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER_LARGE", float("inf"))
     m = _matrix()
     c = CSR.from_scipy(m, device="cpu")
     with kernels.use_kernel("cuda"):

@@ -249,10 +249,13 @@ def test_densify_threshold_follows_width(monkeypatch):
     assert not cuda_k._dense_affordable(c, 256)
 
 
-def test_wide_matrix_stays_on_kernel(routes):
+def test_wide_matrix_stays_on_kernel(routes, monkeypatch):
     """A matrix whose B and C panels overflow the TPU's VMEM: the JAX
     package sends it to its XLA scatter path, the port keeps it on the
-    SpMM kernel (there is no VMEM gate here)."""
+    SpMM kernel (there is no VMEM gate here).  Its layout costs about 17 B
+    an entry, past SpMM's CSR-form crossover: held on the micro-block
+    kernel's route, which this checks."""
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, float("inf")),))
     rng = np.random.default_rng(20)
     a = sps.random(64, 15000, 3e-3, format="csr", random_state=rng,
                    dtype=np.float32)

@@ -30,7 +30,9 @@ from torch_util import Scipy, assert_product_close, power_law
 from util import assert_spmv_close
 
 SHAPE = (256, 1 << 16)
-WIDTHS = (1, 3, 50)
+#: every lanes-a-row (4, 8, 16, 32) and load width (1, 2, 4 floats) of the
+#: kernel's plan, on both sides of each change
+WIDTHS = (1, 2, 3, 4, 8, 16, 17, 32, 33, 50, 64, 65, 128, 129, 256)
 
 
 def _cases():
@@ -102,12 +104,57 @@ def test_reference_matches_pallas(case, n, ptr_dtype, pallas_results):
     a = CASES[case]
     b, want = pallas_results[case, False, n]
     c = _port(a, ptr_dtype)
+    empty = np.diff(a.indptr) == 0
     for tile in (spmm.CSR_TILE, 7):
         got = spmm.spmm_csr_reference(c.rowptrs, c.colinds, c.values,
                                       torch.from_numpy(b), tile)
         assert got.dtype == torch.float32 and got.shape == (a.shape[0], n)
         assert_product_close(got.numpy(), want)
         assert_product_close(got.numpy(), a.astype(np.float64) @ b)
+        assert np.all(got.numpy()[empty] == 0)
+
+
+@pytest.mark.parametrize("n", WIDTHS)
+def test_plan_lanes_and_load_width(n):
+    """csr_plan: the fewest of 4, 8, 16, 32 lanes whose 4 columns a lane
+    cover n (32 past 128 columns, in passes); 16 B loads where n and B's
+    row stride are multiples of 4 on a 16 B boundary, 8 B where they are
+    even on 8 B (n = 50: 200 B rows), else 4 B; an unaligned B at n = 50
+    takes 4 B loads."""
+    width, lanes = spmm.csr_plan(n, n, 256)
+    assert lanes == next((k for k in (4, 8, 16, 32) if 4 * k >= n), 32)
+    assert width == (4 if n % 4 == 0 else 2 if n % 2 == 0 else 1)
+    assert spmm.csr_plan(n, n + 1, 256)[0] == (2 if (n + 1) % 2 == 0 and n % 2 == 0 else 1)
+    assert spmm.csr_plan(n, n, 4) == (1, lanes)
+    if n == 50:
+        assert spmm.csr_plan(50, 50, 8) == (2, 16)  # 200 B rows, 8 B aligned
+        assert spmm.csr_plan(50, 52, 16) == (2, 16)
+    # the lanes a row the kernel's entry takes
+    src = pathlib.Path(_cuda.CSRC, "spmm_csr.cu").read_text()
+    assert all(f"lanes == {k}" in src for k in spmm.CSR_LANES)
+
+
+def test_share_edges_cached():
+    """mult_dense on the CSR-form route hands the kernel's wrapper the rows
+    at its share edges (csr_shares at SpMM's share, not SpMV's), cached on
+    the matrix and built again after an in-place edit."""
+    a = CASES["long row"]
+    c = _port(a)
+    seen = []
+    real = spmm.spmm_csr
+    b = torch.from_numpy(_operand(a, 3, 78))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(spmm, "spmm_csr", lambda *args, **kw: seen.append(kw["edges"])
+                   or real(*args, **kw))
+        with kernels.use_kernel("cuda"):
+            for _ in range(2):
+                c.mult_dense(b)
+            first = cuda_k._spmm_edges(c)
+            assert seen == [first, first]
+            assert torch.equal(first, spmv.csr_shares(c.rowptrs, a.nnz, spmm.CSR_TILE)[0])
+            assert not torch.equal(first[:5], cuda_k._spmv_edges(c, False)[:5])
+            c.values.mul_(2)
+            assert cuda_k._spmm_edges(c) is not first
 
 
 @pytest.mark.parametrize("case,structure_only",
@@ -338,8 +385,8 @@ def edited_reference():
 
 
 INF = float("inf")
-#: route: (_CSR_CROSSOVER, _SPMM_CSR_CROSSOVER, _LARGE_WINDOWS or None,
-#: _DENSIFY_CROSSOVER)
+#: route: (_CSR_CROSSOVER and _CSR_CROSSOVER_LARGE, _SPMM_CSR_CROSSOVER,
+#: _LARGE_WINDOWS or None, _DENSIFY_CROSSOVER)
 EDIT_ROUTES = {
     "microblock": (INF, ((1, INF),), None, ((1, 2.0),)),
     "csr": (0.0, ((1, 0.0),), None, ((1, 2.0),)),
@@ -357,6 +404,7 @@ def test_inplace_edit_is_seen_on_every_route(route, edited_reference,
     x, xt, b, a2, want, want_t, want_d = edited_reference
     spmv_x, spmm_x, windows, dense_x = EDIT_ROUTES[route]
     monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", spmv_x)
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER_LARGE", spmv_x)
     monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", spmm_x)
     monkeypatch.setattr(cuda_k, "_DENSIFY_CROSSOVER", dense_x)
     if windows:

@@ -103,6 +103,8 @@ def test_routed_products_match_pallas(case, ptr_dtype, pallas_results,
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_reference_matches_pallas(case, pallas_results):
+    """The plain version against csr_tpu and scipy; rows with no entry are
+    exact zeros (every row a sum of its own products only)."""
     a = CASES[case]
     x, _, ry, _ = pallas_results[case]
     c = _port(a, torch.int32)
@@ -111,6 +113,45 @@ def test_reference_matches_pallas(case, pallas_results):
     assert y.dtype == torch.float32 and y.shape == (a.shape[0],)
     assert_spmv_close(y.numpy(), ry, Scipy(a), x)
     assert_spmv_close(y.numpy(), a.astype(np.float64) @ x, Scipy(a), x)
+    empty = np.diff(a.indptr) == 0
+    assert np.all(y.numpy()[empty] == 0)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_share_edges_cached(transpose):
+    """The cuda backend caches the rows at the CSR-form SpMV's share edges
+    (csr_shares' first tensor, of the transpose for mult_vec_t), hands
+    them to the kernel's wrapper, and builds them again after an in-place
+    edit of rowptrs or colinds."""
+    a = CASES["long row"]
+    c = _port(a, torch.int32)
+    seen = []
+    real = spmv.spmv_csr
+
+    def spy(*args, **kw):
+        seen.append(kw.get("edges"))
+        return real(*args, **kw)
+
+    rp_of = lambda: cuda_k._cached_csr_t(c)[0] if transpose else c.rowptrs
+    v = np.ones(a.shape[0] if transpose else a.shape[1], np.float32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(spmv, "spmv_csr", spy)
+        mp.setattr(cuda_k, "_CSR_CROSSOVER", 0.0)
+        with kernels.use_kernel("cuda"):
+            for _ in range(2):
+                c.mult_vec_t(v) if transpose else c.mult_vec(v)
+            first = cuda_k._spmv_edges(c, transpose)
+            assert seen == [first, first]  # the same tensor: cached
+            assert torch.equal(first, spmv.csr_shares(rp_of(), a.nnz)[0])
+            c.colinds.copy_(c.colinds.flip(0))
+            again = cuda_k._spmv_edges(c, transpose)
+            assert again is not first and torch.equal(again, first)
+            # 5,000 entries of the long row moved to the next: the edges follow
+            c.rowptrs[8] -= 5000
+            moved = cuda_k._spmv_edges(c, transpose)
+            assert torch.equal(moved, spmv.csr_shares(rp_of(), a.nnz)[0])
+            if not transpose:
+                assert not torch.equal(moved, first)
 
 
 def test_empty_matrix():
@@ -177,9 +218,7 @@ def test_split_cuts_rows_at_share_edges():
         y = spmv.spmv_csr_reference(c.rowptrs, c.colinds, c.values, x, tile)
         assert_spmv_close(y.numpy(), want, Scipy(a), x.numpy())
     src = pathlib.Path(_cuda.CSRC, "spmv_csr.cu").read_text()
-    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
-    items = int(re.search(r"kItems = (\d+);", src).group(1))
-    assert threads * items == spmv.CSR_TILE
+    assert int(re.search(r"kTile = (\d+);", src).group(1)) == spmv.CSR_TILE
 
 
 def test_wrapper_on_cpu_runs_plain_version():
@@ -305,15 +344,17 @@ def test_transpose_form_cached():
 def test_vmap_on_the_csr_route_is_one_spmm_csr(monkeypatch):
     """Under torch.func.vmap a CSR-routed matrix runs one CSR-form SpMM a
     batch (``spmm_csr`` on ``X^T``, the transpose's cached CSR tensors for
-    ``mult_vec_t``), and no SpMV launch; no micro-block layout is built."""
+    ``mult_vec_t``, each direction's cached SpMM share edges), and no SpMV
+    launch; no micro-block layout is built."""
     from csr_tpu_torch.ops import spmm as spmm_op
 
-    calls = []
+    calls, edges = [], []
     for mod, name in ((spmm_op, "spmm"), (spmm_op, "spmm_csr"), (spmv, "spmv"),
                       (spmv, "spmv_csr")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real, **k:
-                            calls.append(_n) or _f(*a, **k))
+                            calls.append(_n) or edges.append(k.get("edges"))
+                            or _f(*a, **k))
     a = CASES["hypersparse"]
     c = _port(a, torch.int32)
     rng = np.random.default_rng(54)
@@ -323,6 +364,10 @@ def test_vmap_on_the_csr_route_is_one_spmm_csr(monkeypatch):
         Y = torch.func.vmap(lambda v: c.mult_vec(v))(X)
         Yt = torch.func.vmap(lambda v: c.mult_vec_t(v))(Xt)
     assert calls == ["spmm_csr", "spmm_csr"]
+    assert edges[0] is cuda_k._spmm_edges(c, False)
+    assert edges[1] is cuda_k._spmm_edges(c, True)
+    assert torch.equal(edges[1], spmv.csr_shares(cuda_k._cached_csr_t(c)[0], a.nnz,
+                                                 spmm_op.CSR_TILE)[0])
     for attr in ("_mb_layout_cache", "_mb_layout_t_cache", "_mb_large_cache",
                  "_mb_large_t_cache"):
         assert getattr(c, attr, None) is None, attr

@@ -369,6 +369,7 @@ def test_vmap_large_route_is_one_spmm_a_panel(monkeypatch, transpose):
     # its panels' layouts are mostly padding: hold it on the micro-block
     # route, whose vmap rule this checks
     monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", float("inf"))
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER_LARGE", float("inf"))
     m = sps.random(512, 640, 0.02, format="csr", dtype=np.float32,
                    random_state=np.random.default_rng(7))
     c = CSR.from_scipy(m, device="cpu")
