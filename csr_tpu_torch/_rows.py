@@ -11,10 +11,12 @@ import torch
 
 from . import structure
 from .dtypes import VALUE_DTYPE
+from .tracing import count
 
 
 def extent(csr, row):
     """``(start, end)`` positions of ``row`` in the data arrays."""
+    count("host_reads", 2)
     return int(csr.rowptrs[row]), int(csr.rowptrs[row + 1])
 
 

@@ -43,6 +43,7 @@ import torch.utils._pytree as _pytree
 from . import _rows, structure
 from .dtypes import COLIND_DTYPE, INT32_MAX, VALUE_DTYPE, ptr_dtype
 from .kernels import default_device, get_kernel, releasing
+from .tracing import count, spanned
 
 _log = logging.getLogger(__name__)
 
@@ -178,6 +179,7 @@ class CSR:
         if self._kept_host() is not None:
             return self._host
         vs = self.values
+        count("host_reads", 2 if vs is None else 3)
         return (self.rowptrs.cpu().numpy(), self.colinds.cpu().numpy(),
                 None if vs is None else vs.cpu().numpy())
 
@@ -228,7 +230,10 @@ class CSR:
                 :func:`~csr_tpu_torch.kernels.default_device`).
         """
         def host(a):
-            return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            if isinstance(a, torch.Tensor):
+                count("host_reads")
+                return a.cpu().numpy()
+            return np.asarray(a)
 
         rows, cols = host(rows), host(cols)
         vals = None if vals is None else host(vals)
@@ -493,6 +498,7 @@ class CSR:
             raise ValueError(f"operand of shape {tuple(v.shape)}, expected ({n},)")
         return v
 
+    @spanned("csr.api.mult_vec")
     def mult_vec(self, v):
         """
         SpMV: :math:`A\\vec{x}` on the active kernel.
@@ -515,6 +521,7 @@ class CSR:
                 svs.append(K.mult_vec(h, v))
         return torch.cat(svs)
 
+    @spanned("csr.api.mult_vec_t")
     def mult_vec_t(self, v):
         """
         Transpose SpMV: :math:`A^{T}\\vec{v}` on the active kernel.
@@ -540,6 +547,7 @@ class CSR:
             off += s.nrows
         return out
 
+    @spanned("csr.api.multiply")
     def multiply(self, other, transpose=False):
         """
         SpGEMM: :math:`AB` (or :math:`AB^{T}`) on the active kernel.
@@ -577,6 +585,7 @@ class CSR:
             parts = [mul(s, b_h) for s in self._shard_rows(K.max_nnz)]
         return CSR._assemble_shards(parts)
 
+    @spanned("csr.api.mult_dense")
     def mult_dense(self, b):
         """
         SpMM: :math:`AB` for a dense ``B`` on the active kernel.

@@ -20,11 +20,22 @@ Selection: the ``CSR_KERNEL`` environment variable, else ``cuda`` when
 :func:`default_device` is a card, else ``torch``.  The JAX package's and the
 original library's names are aliases: ``xla``/``numba`` for ``torch``,
 ``pallas``/``mkl`` for ``cuda``.
+
+Instrumentation is one system, :mod:`csr_tpu_torch.tracing`, whose
+``trace`` and ``_listeners`` this module re-exports as they are.  The
+kernels emit events through :func:`trace` (a handle made and released,
+each product's route, each layout build, ESC's terms and chunks), which
+go to every listener and, under ``CSR_TPU_TRACE``, to a log.  Spans mark
+each layer of a product call (``csr.api``, ``csr.backend``, ``csr.op``,
+``csr.launch``), each form the ``cuda`` backend builds (``csr.build``)
+and ESC's host work, and counters count the host's reads of device
+tensors and the forms built; both record only after
+``tracing.enable()``, when they also count the events, and cost one
+flag read a site until then.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import threading
 import warnings
@@ -34,6 +45,8 @@ from importlib import import_module
 # imported under another name: the submodule ``kernels.torch`` becomes the
 # package attribute ``torch`` once it is loaded
 import torch as _torch
+
+from csr_tpu_torch.tracing import _listeners, trace  # noqa: F401
 
 kernels = {}
 __all__ = ["default_device", "releasing", "set_kernel", "use_kernel",
@@ -47,33 +60,6 @@ def default_device() -> _torch.device:
     :class:`csr_tpu_torch.CSR`, :func:`csr_tpu_torch.parallel.partition.make_mesh`
     and the default kernel all follow it."""
     return _torch.device("cuda" if _torch.cuda.is_available() else "cpu")
-
-# Handle-lifecycle tracing, enabled by the CSR_TPU_TRACE environment
-# variable; kernels call ``trace()`` on handle creation and release and on
-# layout builds.
-_TRACE = bool(os.environ.get("CSR_TPU_TRACE"))
-_trace_log = logging.getLogger("csr_tpu_torch.trace")
-if _TRACE and not _trace_log.handlers:  # pragma: no cover - env-dependent
-    _h = logging.StreamHandler()
-    _h.setFormatter(logging.Formatter("csr-tpu-torch-trace: %(message)s"))
-    _trace_log.addHandler(_h)
-    _trace_log.setLevel(logging.INFO)
-
-#: registered trace listeners (callables ``f(event, fields)``), always
-#: dispatched, whether or not CSR_TPU_TRACE is set
-_listeners: list = []
-
-
-def trace(event: str, **fields):
-    """Log a handle-lifecycle event when ``CSR_TPU_TRACE`` is set, and
-    dispatch it to the registered listeners."""
-    for listener in _listeners:
-        listener(event, fields)
-    if _TRACE:
-        _trace_log.info(
-            "%s %s", event, " ".join(f"{k}={v}" for k, v in fields.items())
-        )
-
 
 class ActiveKernel(threading.local):
     """Thread-local active kernel."""

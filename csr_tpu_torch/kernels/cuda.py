@@ -91,6 +91,7 @@ from csr_tpu_torch.ops import microblock
 from csr_tpu_torch.ops import spgemm as _spgemm_op
 from csr_tpu_torch.ops import spmm as _spmm_op
 from csr_tpu_torch.ops import spmv as _spmv_op
+from csr_tpu_torch.tracing import count, span, spanned
 
 # Per-operation capacity, from the card's memory: an H100 holds 80 GB.  A
 # layout costs 6 B per padded slot, 12 B per stored entry at fill 0.5.  A
@@ -176,6 +177,8 @@ def _stat_edges(rowptrs: torch.Tensor, period: int) -> list:
     targets = torch.arange(_STAT_CHUNK, max(int(rowptrs[-1]), _STAT_CHUNK),
                            _STAT_CHUNK, device=dev)
     picks = starts[torch.searchsorted(at, targets, right=True) - 1]
+    # the three boolean gathers, the entry count and the four lists
+    count("host_reads", 8)
     return sorted({0, nrows, *panels.tolist(), *picks.tolist(),
                    *starts[heavy].tolist(), *ends[heavy].tolist()})
 
@@ -186,6 +189,7 @@ def _key_microrows(colinds, k0: int, k1: int, key, size: int) -> torch.Tensor:
     columns to keys: counted by slices of :data:`_STAT_CHUNK` entries."""
     counts = torch.zeros(size, dtype=torch.int64, device=colinds.device)
     for k in range(k0, k1, _STAT_CHUNK):
+        count("host_reads")  # bincount reads its input's largest key
         counts += torch.bincount(key(colinds[k : min(k + _STAT_CHUNK, k1)].long()),
                                  minlength=size)
     return -torch.div(-counts, microblock.SLOT_CAP, rounding_mode="floor")
@@ -223,11 +227,13 @@ def _microrows(csr, transpose: bool) -> int:
     dev = rp.device
     edges = _stat_edges(rp, row_period)
     bounds = rp[torch.tensor(edges, device=dev)].tolist()
+    count("host_reads")
     group, total = microblock.ACC_GROUP, 0
     per_stripe = (torch.zeros(-(-ncols // microblock.LANE), dtype=torch.int64,
                               device=dev) if transpose else None)
 
     def padded(mrs):
+        count("host_reads")
         return int((-torch.div(-mrs, group, rounding_mode="floor") * group).sum())
 
     for i, (r0, r1) in enumerate(zip(edges, edges[1:])):
@@ -238,6 +244,7 @@ def _microrows(csr, transpose: bool) -> int:
                                              per_stripe.numel())
             else:  # keys (panel, column window), a stripe at a time, padded a panel
                 for s0 in range(r0, r1, microblock.LANE):
+                    count("host_reads", 2)
                     mrs = _key_microrows(
                         csr.colinds, int(rp[s0]), int(rp[min(s0 + microblock.LANE, r1)]),
                         lambda c: c // period * n_cb + c % period // 256,
@@ -256,12 +263,14 @@ def _microrows(csr, transpose: bool) -> int:
                 key = (((rows >> 7).long() * n_panels + panel) * n_cb
                        + ((cols - panel * period) >> 8))
             keys, counts = torch.unique(key, return_counts=True)
+            count("host_reads")  # the keys' count
             mrs = -torch.div(-counts, microblock.SLOT_CAP, rounding_mode="floor")
             stripe = torch.div(keys, n_cb, rounding_mode="floor")
             if transpose:
                 per_stripe.index_add_(0, stripe, mrs)
             else:
                 _, inverse = torch.unique_consecutive(stripe, return_inverse=True)
+                count("host_reads", 2)  # the stripes' count, and the last read back
                 total += padded(torch.zeros(int(inverse[-1]) + 1, dtype=torch.int64,
                                             device=dev).index_add_(0, inverse, mrs))
         if transpose and (r1 == nrows or r1 % period == 0):  # a panel ends
@@ -270,14 +279,21 @@ def _microrows(csr, transpose: bool) -> int:
     return total
 
 
+def _build_stat(csr, transpose: bool) -> dict:
+    return {(transpose, _LARGE_WINDOWS): _microrows(csr, transpose)}
+
+
 def _layout_bytes_per_entry(csr, transpose: bool, versions=None) -> float:
     """Device bytes a stored entry of the (256, 1) micro-block layout of
     ``csr`` (or of its transpose), from :func:`_microrows` (cached on the
-    matrix as the layouts are, and by ``_LARGE_WINDOWS``)."""
-    stats = _cached(csr, "_mb_stat_cache", lambda c, t: {}, False, versions)
+    matrix as the layouts are, by direction and ``_LARGE_WINDOWS``: the
+    ``csr.build.stat`` span)."""
+    stats = _cached(csr, "_mb_stat_cache", _build_stat, transpose, versions)
     key = (transpose, _LARGE_WINDOWS)
-    if key not in stats:
-        stats[key] = _microrows(csr, transpose)
+    if key not in stats:  # the other direction, or another window budget
+        with span("csr.build.stat"):
+            stats[key] = _microrows(csr, transpose)
+        count("form_builds.stat")
     return stats[key] * _MICROROW_BYTES / max(csr.nnz, 1)
 
 
@@ -418,11 +434,16 @@ def _cached(csr, attr: str, build, transpose: bool, versions=None):
     """``build(csr, transpose)``, cached on the matrix while
     :func:`_fresh`: a rebinding or an in-place edit of its tensors
     invalidates it.  A call that looks up several forms reads
-    ``versions`` once and passes it to each."""
+    ``versions`` once and passes it to each.  A build is a
+    ``csr.build.<form>`` span and counts in ``form_builds.<form>``, the
+    form named by ``attr`` (``_mb_layout_cache``: ``layout``)."""
     cached = getattr(csr, attr, None)
     if _fresh(cached, csr, versions):
         return cached[3]
-    built = build(csr, transpose)
+    form = attr.removeprefix("_").removeprefix("mb_").removesuffix("_cache")
+    with span("csr.build." + form):
+        built = build(csr, transpose)
+    count("form_builds." + form)
     setattr(csr, attr, _entry(csr, built))
     return built
 
@@ -551,6 +572,7 @@ def _mult(h, v, transpose: bool):
     return _spmv_op.product(a, v, ncols, op).to(out_dtype)
 
 
+@spanned("csr.backend.mult_vec")
 def mult_vec(h, v):
     """SpMV ``A @ v`` on the route :func:`_spmv_route` picks: the
     CSR-form kernel, or the micro-block kernel (chunks and panels past
@@ -558,6 +580,7 @@ def mult_vec(h, v):
     return _mult(h, v, transpose=False)
 
 
+@spanned("csr.backend.mult_vec_t")
 def mult_vec_t(h, v):
     """Transpose SpMV ``A^T @ v`` on the route :func:`_spmv_route` picks
     for the transpose, over its cached CSR tensors or layout (built by a
@@ -671,6 +694,7 @@ def _sparse_times_dense(h, b, op: str):
     return _spmm_op.spmm(_cached_layout(c, ver), b)
 
 
+@spanned("csr.backend.mult_dense")
 def mult_dense(h, B):
     """SpMM ``A @ B`` with dense ``B`` (see the module docstring for the
     routes)."""
@@ -713,11 +737,13 @@ def _spgemm(a_h, b_h, transpose: bool):
     return to_handle(_torch_k.dense_to_csr(c_dense))
 
 
+@spanned("csr.backend.mult_ab")
 def mult_ab(a_h, b_h):
     """SpGEMM ``A @ B`` (see :func:`_spgemm`)."""
     return _spgemm(a_h, b_h, transpose=False)
 
 
+@spanned("csr.backend.mult_abt")
 def mult_abt(a_h, b_h):
     """SpGEMM ``A @ B^T`` (see :func:`_spgemm`)."""
     return _spgemm(a_h, b_h, transpose=True)

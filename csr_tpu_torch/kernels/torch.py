@@ -20,6 +20,7 @@ import torch
 
 from csr_tpu_torch import structure
 from csr_tpu_torch.kernels import trace
+from csr_tpu_torch.tracing import count
 from csr_tpu_torch.ops import spgemm as _esc
 from csr_tpu_torch.ops import spmm as _spmm_op
 
@@ -122,6 +123,7 @@ def dense_to_csr(dense):
     nrows, ncols = dense.shape
     mask = dense != 0
     rids, cols = torch.nonzero(mask, as_tuple=True)
+    count("host_reads", 2)  # the entries' count, here and in ``dense[mask]``
     rps = torch.zeros(nrows + 1, dtype=torch.int64, device=dense.device)
     torch.cumsum(mask.sum(1), 0, out=rps[1:])
     return CSR(nrows, ncols, cols.shape[0], rps, cols, dense[mask])

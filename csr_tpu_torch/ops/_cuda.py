@@ -22,6 +22,7 @@ import time
 import torch
 
 from csr_tpu_torch.native.build import build_cached
+from csr_tpu_torch.tracing import span
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
@@ -55,6 +56,8 @@ ENTRIES = {
 
 #: loaded libraries by kernel name
 _LIBS: dict = {}
+#: kernel name -> (its entry ``csrt_<name>``, the name of its launch's span)
+_LAUNCH: dict = {}
 #: seconds each kernel's first :func:`library` call took (build and load)
 build_seconds: dict = {}
 #: nvcc's output of each build (ptxas registers, shared memory, spills)
@@ -85,12 +88,17 @@ def library(name: str):
         fn.argtypes = ENTRIES[name]
         build_log[name] = log
         build_seconds[name] = time.perf_counter() - t0
+        _LAUNCH[name] = (fn, "csr.launch." + name)
         _LIBS[name] = lib
     return _LIBS[name]
 
 
 def _launch(name: str, *args) -> None:
-    rc = getattr(library(name), f"csrt_{name}")(*args)
+    if name not in _LAUNCH:
+        library(name)
+    fn, span_name = _LAUNCH[name]
+    with span(span_name):
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 

@@ -35,6 +35,7 @@ import torch
 from csr_tpu_torch import structure
 from csr_tpu_torch.dtypes import COLIND_DTYPE, ptr_dtype
 from csr_tpu_torch.kernels import trace
+from csr_tpu_torch.tracing import count, span
 
 #: largest dense intermediate, in BYTES, that the dense route may
 #: allocate (512 MiB).  The JAX package budgets ELEMENTS
@@ -118,6 +119,7 @@ def _compress(key, vals, nrows: int):
     """Sum the values of equal (adjacent) keys: ``(rowptrs, colinds,
     values, nnz)`` of the output, reading its entry count back once."""
     ukey, seg = torch.unique_consecutive(key, return_inverse=True)
+    count("host_reads")  # the unique keys' count
     nnz = ukey.shape[0]
     out_vals = torch.zeros(nnz, dtype=vals.dtype, device=vals.device)
     out_vals.index_add_(0, seg, vals)
@@ -137,10 +139,12 @@ def _esc_rows(a_vals, a_rps, a_cols, b_rps, b_cols, b_vals,
                    torch.zeros(nrows + 1, dtype=torch.int32, device=dev),
                    torch.zeros(0, dtype=COLIND_DTYPE, device=dev),
                    torch.zeros(0, dtype=out_dtype, device=dev), _cast=False)
-    a_rids = structure._row_ids(a_rps, nrows, a_cols.shape[0])
-    key, vals = _expand(a_rids, a_cols, a_vals, b_rps, b_cols, b_vals,
-                        n_terms, out_dtype)
-    rps, cols, vals, nnz = _compress(key, vals, nrows)
+    with span("csr.esc.expand"):
+        a_rids = structure._row_ids(a_rps, nrows, a_cols.shape[0])
+        key, vals = _expand(a_rids, a_cols, a_vals, b_rps, b_cols, b_vals,
+                            n_terms, out_dtype)
+    with span("csr.esc.compress"):
+        rps, cols, vals, nnz = _compress(key, vals, nrows)
     return CSR(nrows, ncols_out, nnz, rps, cols, vals, _cast=False)
 
 
@@ -149,6 +153,7 @@ def _host_index(csr, i: int) -> np.ndarray:
     the kept copy, or the one tensor read back."""
     if csr._kept_host() is not None:
         return np.asarray(csr._host[i])
+    count("host_reads")
     return (csr.rowptrs, csr.colinds)[i].cpu().numpy()
 
 
@@ -169,9 +174,10 @@ def esc_mult_ab(a, b, out_dtype=None):
             torch.promote_types(a_vals.dtype, b_vals.dtype), torch.float32)
 
     # the plan, on the host: no chunk expands past the budget
-    a_rps_h = _host_index(a, 0).astype(np.int64)
-    cum = _term_cum(a_rps_h, np.diff(_host_index(b, 0)), _host_index(a, 1))
-    splits = _splits(cum)
+    with span("csr.esc.plan"):
+        a_rps_h = _host_index(a, 0).astype(np.int64)
+        cum = _term_cum(a_rps_h, np.diff(_host_index(b, 0)), _host_index(a, 1))
+        splits = _splits(cum)
     parts = []
     for lo, hi in zip(splits[:-1], splits[1:]):
         s0, s1 = int(a_rps_h[lo]), int(a_rps_h[hi])
@@ -197,7 +203,8 @@ def esc_mult_abt(a, b, out_dtype=None):
     if a.ncols != b.ncols:
         raise ValueError(f"cannot multiply {a.nrows}x{a.ncols} by "
                          f"{b.nrows}x{b.ncols}^T")
-    t_rps, t_cis, t_vs = structure.transpose_arrays(
-        b.rowptrs, b.colinds, b.values, b.nrows, b.ncols)
+    with span("csr.structure.transpose"):
+        t_rps, t_cis, t_vs = structure.transpose_arrays(
+            b.rowptrs, b.colinds, b.values, b.nrows, b.ncols)
     bt = CSR(b.ncols, b.nrows, b.nnz, t_rps, t_cis, t_vs, _cast=False)
     return esc_mult_ab(a, bt, out_dtype)

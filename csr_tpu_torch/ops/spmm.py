@@ -35,6 +35,8 @@ from dataclasses import dataclass
 
 import torch
 
+from csr_tpu_torch.tracing import spanned
+
 from .microblock import (ACC_GROUP, LANE, SLOT_CAP, MicroBlockLayout,
                          check_on_card)
 from .spmv import check_csr_operands, csr_parts, n_shares
@@ -239,6 +241,7 @@ def spmm_regrouped(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
+@spanned("csr.op.spmm")
 def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
     """``A @ B`` for a micro-block matrix and a dense ``b`` of shape
     ``(ncols, n)``; returns f32 ``(nrows, n)`` on the layout's device.
@@ -278,6 +281,7 @@ def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
+@spanned("csr.op.spmm_large")
 def spmm_large(chunks, b: torch.Tensor) -> torch.Tensor:
     """``A @ B`` over ``ops/spmv.py:build_large_layouts``'s chunks:
     :func:`spmm` once a panel, on the panel's rows of ``b``, added into
@@ -334,6 +338,7 @@ def csr_plan(n: int, ldb: int, align: int) -> tuple:
     return width, lanes
 
 
+@spanned("csr.op.spmm_csr")
 def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
              values: torch.Tensor | None, b: torch.Tensor,
              edges: torch.Tensor | None = None) -> torch.Tensor:

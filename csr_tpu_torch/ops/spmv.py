@@ -41,6 +41,8 @@ import torch
 
 import numpy as np
 
+from csr_tpu_torch.tracing import spanned
+
 from .microblock import (ACC_GROUP, LANE, BucketStack, MicroBlockLayout,
                          build_microblocks_host, check_on_card,
                          check_stack_on_card)
@@ -97,6 +99,7 @@ def spmv_reference(layout: MicroBlockLayout, x: torch.Tensor) -> torch.Tensor:
     return y[: layout.nrows]
 
 
+@spanned("csr.op.spmv")
 def spmv(layout: MicroBlockLayout, x: torch.Tensor,
          out: torch.Tensor | None = None) -> torch.Tensor:
     """``A @ x`` for a micro-block matrix; returns f32 of length
@@ -290,6 +293,7 @@ def build_large_layouts(nrows: int, ncols: int, rp, cols, vals, *,
     return chunks
 
 
+@spanned("csr.op.spmv_large")
 def spmv_large(chunks, ncols: int, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` over :func:`build_large_layouts`'s chunks: :func:`spmv`
     once a panel, on the panel's contiguous slice of ``x``, adding into
@@ -416,6 +420,7 @@ def check_csr_operands(rowptrs, colinds, values, x, out=None,
             raise ValueError(f"{name} must be contiguous")
 
 
+@spanned("csr.op.spmv_csr")
 def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
              values: torch.Tensor | None, x: torch.Tensor,
              out: torch.Tensor | None = None,

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .dtypes import COLIND_DTYPE, ptr_dtype
+from .tracing import count
 
 
 def from_coo(nrows: int, rows, cols, values=None):
@@ -92,6 +93,8 @@ def subset_rows_arrays(rowptrs, colinds, values, begin: int, end: int):
     """Rows ``[begin, end)`` of CSR arrays, as views where the arrays allow
     (numpy arrays and torch tensors alike).  Returns
     ``(rowptrs, colinds, values, nnz)``."""
+    if isinstance(rowptrs, torch.Tensor):
+        count("host_reads", 2)
     sp = int(rowptrs[begin])
     ep = int(rowptrs[end])
     rps = rowptrs[begin : end + 1] - sp
@@ -109,6 +112,7 @@ def pick_rows_arrays(csr, rows, include_values: bool = True):
     starts = rps[rows]
     out_rps = torch.zeros(len(rows) + 1, dtype=torch.int64, device=rps.device)
     torch.cumsum(rps[rows + 1] - starts, 0, out=out_rps[1:])
+    count("host_reads")
     nnz = int(out_rps[-1])
     out_rid = _row_ids(out_rps, len(rows), nnz).to(torch.int64)
     pos = torch.arange(nnz, dtype=torch.int64, device=rps.device)
@@ -129,6 +133,8 @@ def filter_nnzs_arrays(csr, filt):
     nnz = int(kept[-1])
     rps = kept[csr.rowptrs.to(torch.int64)].to(ptr_dtype(nnz))
     vs = None if csr.values is None else csr.values[filt]
+    # the count, and each boolean gather's (the mask's true entries)
+    count("host_reads", 2 if vs is None else 3)
     return rps, csr.colinds[filt], vs, nnz
 
 

@@ -5,20 +5,16 @@ Timing on the card (counterpart of :mod:`csr_tpu.utils.profiling`).
 :func:`timed_graph` the same chain captured once in a CUDA graph and
 replayed, and :func:`timed` single calls.  :func:`launch_counts` reads
 the five kernel wrappers' launch counts.  :func:`peak_gbps` gives a card's published
-memory bandwidth from its device name, :func:`peak_f32_tflops` its f32
-rate outside the tensor cores, and :func:`least_ms` the least time the
-card could take for given bytes and operations.  :class:`Roofline`
-turns an op's bytes, entries and measured seconds into rates and a share
-of the card's bandwidth, and :func:`profiler_trace` records a
-``torch.profiler`` trace.  A measurement needs a CUDA device: there is
-no CPU timing here, so no CPU number can pass for a device one.
+memory bandwidth from its device name, and :func:`least_ms` the least
+time the card could take for given bytes and operations.  A measurement
+needs a CUDA device: there is no CPU timing here, so no CPU number can
+pass for a device one.  The program's own spans and counters, and a
+``torch.profiler`` range of each span, are :mod:`csr_tpu_torch.tracing`'s.
 """
 
 from __future__ import annotations
 
 import statistics
-from dataclasses import dataclass, field
-
 import torch
 
 #: published peaks by device-name substring, first match wins: HBM
@@ -45,13 +41,6 @@ def peak_gbps(name: str | None = None) -> float | None:
     """Published memory bandwidth of a card, from its name (default: the
     current CUDA device's), or None for a card not in the table."""
     return _peaks(name)[0]
-
-
-def peak_f32_tflops(name: str | None = None) -> float | None:
-    """Published f32 rate of a card outside its tensor cores, from its
-    name (default: the current CUDA device's), or None for a card not in
-    the table."""
-    return _peaks(name)[1]
 
 
 def least_ms(bytes_moved: float, flops: float, name: str | None = None):
@@ -174,61 +163,3 @@ def timed(fn, *args, iters: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / 1e3)
     return statistics.median(times)
-
-
-def _card_peak_gbps():
-    return peak_gbps() if torch.cuda.is_available() else None
-
-
-@dataclass
-class Roofline:
-    """Bytes and entries of one sparse op and its measured ``seconds``
-    (from :func:`timed` or :func:`timed_chained`), against the card's
-    published bandwidth (None where there is no card or it is not in the
-    table: then :attr:`fraction_of_roofline` is None too)."""
-
-    bytes_streamed: int = 0
-    bytes_resident: int = 0
-    nnz: int = 0
-    seconds: float = 0.0
-    peak_gbps: float | None = field(default_factory=_card_peak_gbps)
-
-    @property
-    def total_bytes(self) -> int:
-        return self.bytes_streamed + self.bytes_resident
-
-    @property
-    def achieved_gbps(self) -> float:
-        return self.total_bytes / self.seconds / 1e9 if self.seconds else 0.0
-
-    @property
-    def nnz_per_s(self) -> float:
-        return self.nnz / self.seconds if self.seconds else 0.0
-
-    @property
-    def fraction_of_roofline(self) -> float | None:
-        if not self.peak_gbps:
-            return None
-        return self.achieved_gbps / self.peak_gbps
-
-    def report(self) -> dict:
-        frac = self.fraction_of_roofline
-        return {
-            "gbps": self.achieved_gbps,
-            "gnnz_per_s": self.nnz_per_s / 1e9,
-            "roofline_frac": frac,
-            "seconds": self.seconds,
-        }
-
-
-def profiler_trace(log_dir: str):
-    """A ``torch.profiler.profile`` context over the host and the card
-    that writes its trace (TensorBoard's and Perfetto's format) into
-    ``log_dir`` when the block ends."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(log_dir))

@@ -815,3 +815,40 @@ def test_csr_routed_mult_dense_is_one_launch_on_card(cuda_device):
     assert_product_close(d.cpu().numpy(), a.astype(np.float64) @ b)
     for k in range(3):
         spmv_share(Y[k], a.astype(np.float64) @ X[k], a, X[k])
+
+
+@pytest.mark.parametrize("route", ["microblock", "csr"])
+def test_launch_spans_count_the_launches_on_card(route, cuda_device, monkeypatch):
+    """With the program's tracing on, each kernel's ``csr.launch`` span
+    counts once a launch: ``mult_vec``, ``mult_vec_t`` and ``mult_dense``
+    on the micro-block kernels or on the CSR-form ones give the wrappers'
+    launch counts, and each call one ``csr.api`` span."""
+    from csr_tpu_torch import tracing
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.utils.profiling import launch_counts
+
+    point = 0.0 if route == "csr" else float("inf")
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", point)
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, point),))
+    a = random_matrix(3000, 2000, 0.01, seed=93)
+    c = CSR.from_scipy(a, device=cuda_device)
+    x = torch.ones(2000, device=cuda_device)
+    y = torch.ones(3000, device=cuda_device)
+    b = torch.ones(2000, 8, device=cuda_device)
+    rec = tracing.enable()
+    try:
+        with use_kernel("cuda"):
+            launch_counts(reset=True)
+            for _ in range(3):
+                c.mult_vec(x)
+                c.mult_vec_t(y)
+                c.mult_dense(b)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        snap = rec.snapshot()
+    finally:
+        tracing.disable()
+    spans = {k[len("csr.launch."):]: s["count"] for k, s in snap["spans"].items()
+             if k.startswith("csr.launch.")}
+    assert spans == {k: n for k, n in counts.items() if n} and sum(spans.values()) == 9
+    assert sum(s["count"] for k, s in snap["spans"].items() if k.startswith("csr.api.")) == 9
