@@ -21,11 +21,11 @@ values of 1.0 (float32).
 The methods that work "in place" (``sort_rows``, ``normalize_rows``,
 ``fill_values``, ``drop_values``, ``_filter_zeros``) bind new tensors
 and drop the host copies; they never write into the tensors they held.
-The ``cuda`` kernel caches its layouts, and the matrix its row shards
-and host copies, on the identity of the three tensors and on their
-version counters (:meth:`CSR._versions`), so a rebinding or an in-place
-edit of a tensor (``values.mul_(2)``) tells it that a cached form is
-stale.
+The ``cuda`` kernel caches its layouts, and the matrix its row shards,
+host copies and product plans (:mod:`csr_tpu_torch._plan`), on the
+identity of the three tensors and on their version counters
+(:meth:`CSR._versions`), so a rebinding or an in-place edit of a tensor
+(``values.mul_(2)``) tells it that a cached form is stale.
 
 A CSR is a ``torch.utils._pytree`` node, as the JAX class is a pytree:
 ``torch.func.vmap`` and ``torch.func.grad`` take and return it.
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as _pytree
 
-from . import _rows, structure
+from . import _plan, _rows, structure
 from .dtypes import COLIND_DTYPE, INT32_MAX, VALUE_DTYPE, ptr_dtype
 from .kernels import default_device, get_kernel, releasing
 from .tracing import count, spanned
@@ -91,7 +91,7 @@ class CSR:
                  "_shard_cache", "_mb_large_cache", "_mb_large_t_cache",
                  "_csr_t_cache", "_mb_stat_cache", "_spmv_edges_cache",
                  "_spmv_edges_t_cache", "_spmm_edges_cache",
-                 "_spmm_edges_t_cache")
+                 "_spmm_edges_t_cache", "_plans")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True,
                  device=None):
@@ -162,9 +162,12 @@ class CSR:
         in-place edit of a tensor moves its counter, so a form made from
         the tensors is stale once these differ from those it was made at."""
         rp, ci, vs = self.rowptrs, self.colinds, self._values
-        return (-1 if rp.is_inference() else rp._version,
-                -1 if ci.is_inference() else ci._version,
-                None if vs is None else -1 if vs.is_inference() else vs._version)
+        try:
+            return (rp._version, ci._version, None if vs is None else vs._version)
+        except RuntimeError:  # an inference tensor keeps no version counter
+            return (-1 if rp.is_inference() else rp._version,
+                    -1 if ci.is_inference() else ci._version,
+                    None if vs is None else -1 if vs.is_inference() else vs._version)
 
     def _kept_host(self):
         """The kept host copies, or None: they are dropped once a tensor
@@ -510,11 +513,16 @@ class CSR:
         Returns:
             torch.Tensor: length ``nrows``, on the matrix's device.
         """
-        v = self._operand(v, self.ncols)
         K = get_kernel()
+        y = _plan.run(self, K, "mult_vec", v)
+        if y is not None:
+            return y
+        v = self._operand(v, self.ncols)
         if self.nnz <= K.max_nnz:
             with releasing(K.to_handle(self), K) as h:
-                return K.mult_vec(h, v)
+                y = K.mult_vec(h, v)
+            _plan.keep(self, K, "mult_vec", h)
+            return y
         svs = []
         for s in self._shard_rows(K.max_nnz):
             with releasing(K.to_handle(s), K) as h:
@@ -532,11 +540,16 @@ class CSR:
         Returns:
             torch.Tensor: length ``ncols``, on the matrix's device.
         """
-        v = self._operand(v, self.nrows)
         K = get_kernel()
+        y = _plan.run(self, K, "mult_vec_t", v)
+        if y is not None:
+            return y
+        v = self._operand(v, self.nrows)
         if self.nnz <= K.max_nnz:
             with releasing(K.to_handle(self), K) as h:
-                return K.mult_vec_t(h, v)
+                y = K.mult_vec_t(h, v)
+            _plan.keep(self, K, "mult_vec_t", h)
+            return y
         # row shards contribute partial sums over the whole column space
         out = None
         off = 0
@@ -597,14 +610,19 @@ class CSR:
         Returns:
             torch.Tensor: shape ``(nrows, n)``, on the matrix's device.
         """
+        K = get_kernel()
+        c = _plan.run(self, K, "mult_dense", b)
+        if c is not None:
+            return c
         b = _as_tensor(b, None, self.device)
         if b.ndim != 2 or b.shape[0] != self.ncols:
             raise ValueError(f"operand of shape {tuple(b.shape)}, expected"
                              f" ({self.ncols}, n)")
-        K = get_kernel()
         if self.nnz <= K.max_nnz:
             with releasing(K.to_handle(self), K) as h:
-                return K.mult_dense(h, b)
+                c = K.mult_dense(h, b)
+            _plan.keep(self, K, "mult_dense", h)
+            return c
         outs = []
         for s in self._shard_rows(K.max_nnz):
             with releasing(K.to_handle(s), K) as h:

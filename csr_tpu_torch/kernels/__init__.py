@@ -3,7 +3,10 @@ Pluggable kernel backends (counterpart of :mod:`csr_tpu.kernels`).
 
 A kernel provides the compute behind :class:`csr_tpu_torch.CSR` through
 the contract ``to_handle, from_handle, release_handle, order_columns,
-mult_vec, mult_vec_t, mult_dense, mult_ab, mult_abt, max_nnz``.
+mult_vec, mult_vec_t, mult_dense, mult_ab, mult_abt, max_nnz``.  A
+kernel whose handle can carry a product plan (``handle.plan``, the
+``cuda`` kernel's) also gives ``route_settings()``, the settings a plan
+is taken under (:mod:`csr_tpu_torch._plan`).
 
 Available kernels:
 
@@ -65,11 +68,11 @@ class ActiveKernel(threading.local):
     """Thread-local active kernel."""
 
     def __init__(self):
-        self.__dict__.update({"active_name": None})
+        self.__dict__.update({"active_name": None, "_active": None})
 
     @property
     def active(self):
-        kern = getattr(self, "_active", None)
+        kern = self._active
         if kern is None:
             return _default_kernel()
         return kern

@@ -76,6 +76,15 @@ Each SpMM or SpGEMM emits a ``mult_dense`` or ``spgemm`` trace event
 whose ``route`` is ``zeros``, ``torch`` (f64), ``dense``, ``csr``,
 ``kernel`` (the micro-block kernel, one layout or its chunks and panels)
 or (SpGEMM only) ``esc``.
+
+A ``mult_vec``, ``mult_vec_t`` or ``mult_dense`` of an f32 operand
+outside a ``torch.func`` transform whose route is one launch on a cached
+form (the micro-block SpMV or SpMM on one layout, the CSR-form SpMV
+either way, the CSR-form SpMM on the matrix's own tensors) leaves its
+product plan on the handle (``CudaHandle.plan``: the wrapper's launch
+with the form's side bound, :mod:`csr_tpu_torch._plan`), which the API
+keeps on the matrix: the next call with such an operand goes from the
+API to the launch.  The other routes keep none.
 """
 
 from __future__ import annotations
@@ -83,7 +92,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from csr_tpu_torch import native
+from csr_tpu_torch import _plan, native
 from csr_tpu_torch.dtypes import ptr_dtype
 from csr_tpu_torch.kernels import torch as _torch_k
 from csr_tpu_torch.kernels import trace
@@ -465,14 +474,16 @@ def _cached_large(csr, transpose: bool, versions=None):
 class CudaHandle:
     """The CSR plus its lazily built forms: the layouts are cached on the
     matrix, the torch handle and the dense form on the handle, all while
-    :func:`_fresh`."""
+    :func:`_fresh`; and the product plan of the call it serves, where its
+    route has one (``plan``, which the API keeps on the matrix)."""
 
-    __slots__ = ("csr", "_torch_handle", "_dense")
+    __slots__ = ("csr", "_torch_handle", "_dense", "plan")
 
     def __init__(self, csr):
         self.csr = csr
         self._torch_handle = None
         self._dense = None
+        self.plan = None
 
     @property
     def layout(self) -> microblock.MicroBlockLayout:
@@ -497,8 +508,16 @@ class CudaHandle:
         return self._dense[3]
 
 
+def _to_handle_fields(csr) -> dict:
+    return {"kernel": "cuda", "shape": (csr.nrows, csr.ncols), "nnz": csr.nnz}
+
+
+def _release_fields(csr) -> dict:
+    return {"kernel": "cuda", "nnz": csr.nnz}
+
+
 def to_handle(csr):
-    trace("to_handle", kernel="cuda", shape=(csr.nrows, csr.ncols), nnz=csr.nnz)
+    trace("to_handle", **_to_handle_fields(csr))
     return CudaHandle(csr)
 
 
@@ -512,7 +531,7 @@ def from_handle(h):
 def release_handle(h, drop_cache: bool = False):
     """Drop the handle's references.  The layouts stay cached on the
     matrix unless ``drop_cache``, so repeated calls pack nothing."""
-    trace("release_handle", kernel="cuda", nnz=h.csr.nnz)
+    trace("release_handle", **_release_fields(h.csr))
     h._torch_handle = None
     h._dense = None
     if drop_cache:
@@ -520,7 +539,7 @@ def release_handle(h, drop_cache: bool = False):
                      "_mb_large_cache", "_mb_large_t_cache", "_csr_t_cache",
                      "_mb_stat_cache", "_spmv_edges_cache",
                      "_spmv_edges_t_cache", "_spmm_edges_cache",
-                     "_spmm_edges_t_cache"):
+                     "_spmm_edges_t_cache", "_plans"):
             setattr(h.csr, attr, None)
 
 
@@ -556,20 +575,59 @@ def _mult(h, v, transpose: bool):
     if out_dtype == torch.float64:
         fn = _torch_k.mult_vec_t if transpose else _torch_k.mult_vec
         return fn(h.torch_handle, v)
-    nrows, ncols = (c.ncols, c.nrows) if transpose else (c.nrows, c.ncols)
+    ncols = c.nrows if transpose else c.ncols
     ver = c._versions()  # read once for every cache this call looks up
-    if _spmv_route(c, transpose, ver) == "csr":
-        # under torch.func.vmap the product is an SpMM, on SpMM's edges
-        batched = torch._C._functorch.maybe_current_level() is not None
+    route = _spmv_route(c, transpose, ver)
+    # under torch.func.vmap the product is an SpMM, on SpMM's edges
+    batched = torch._C._functorch.maybe_current_level() is not None
+    if route == "csr":
         a = _spmv_op.CsrForm(*(_cached_csr_t(c, ver) if transpose else _csr_form(c)),
                              edges=_spmv_edges(c, transpose, ver),
                              spmm_edges=(_spmm_edges(c, transpose, ver)
                                          if batched else None))
-    elif _needs_large(nrows, ncols):
+    elif route == "large":
         a = _cached_large(c, transpose, ver)
     else:
         a = (_cached_layout_t if transpose else _cached_layout)(c, ver)
-    return _spmv_op.product(a, v, ncols, op).to(out_dtype)
+    y = _spmv_op.product(a, v, ncols, op).to(out_dtype)
+    # a plan where the launch reads cached forms only (not a copy of
+    # int64 columns or of values in another dtype)
+    if (route != "large" and not batched and v.dtype == out_dtype == torch.float32
+            and (route != "csr" or transpose
+                 or (a.colinds is c.colinds and a.values is c.values))):
+        h.plan = _plan.make(c, v, route_settings(), a, _spmv_run(a, v, ncols, op),
+                            _events(c))
+    return y
+
+
+def route_settings() -> tuple:
+    """What decides a product's route and launch besides the matrix and the
+    operand: the crossovers and budgets of this module and of the SpMM
+    and SpGEMM ops, which a caller may set.  A product plan is taken only
+    under the settings it was made under."""
+    return (_CSR_CROSSOVER, _CSR_CROSSOVER_LARGE, _SPMM_CSR_CROSSOVER,
+            _DENSIFY_CROSSOVER, _LARGE_WINDOWS, _spgemm_op.max_dense_bytes,
+            _spmm_op.L2_SLAB_BYTES, _spmm_op.BLOCKS_IN_FLIGHT)
+
+
+def _spmv_run(a, v, ncols: int, op: str):
+    """A plan's launch of SpMV on ``a``, a layout or a :class:`CsrForm`,
+    for operands like ``v``: on the card the wrapper's launch, its checks
+    done; on the CPU :func:`csr_tpu_torch.ops.spmv.product` as the
+    general path calls it."""
+    if v.device.type != "cuda":
+        return lambda x: _spmv_op.product(a, x, ncols, op)
+    if isinstance(a, _spmv_op.CsrForm):
+        return _spmv_op.spmv_csr_launch(a.rowptrs, a.colinds, a.values, a.edges, v)
+    return _spmv_op.spmv_launch(a, v)
+
+
+def _events(c, *route) -> tuple:
+    """The events of a product call on ``c`` as the general path emits
+    them: ``to_handle``, the route's (``(event, fields)`` pairs) and
+    ``release_handle``."""
+    return (("to_handle", _to_handle_fields(c)), *route,
+            ("release_handle", _release_fields(c)))
 
 
 @spanned("csr.backend.mult_vec")
@@ -672,12 +730,13 @@ def _spmm_route(csr, n: int, versions=None) -> str:
     return "large" if _needs_large(csr.nrows, csr.ncols) else "kernel"
 
 
-def _sparse_times_dense(h, b, op: str):
+def _sparse_times_dense(h, b, op: str, plan: bool = False):
     """``A @ b`` for f32 dense ``b`` (A's columns by n), on the route its
     shape picks: densified matmul, the CSR-form SpMM kernel, or the
     micro-block one (a launch a chunk and panel past the packing range).
     Emits a trace event naming it (``kernel`` for both micro-block
-    forms)."""
+    forms).  With ``plan``, a single launch on a cached form leaves its
+    product plan on the handle."""
     c = h.csr
     n = b.shape[1]
     if _dense_affordable(c, n):
@@ -685,13 +744,38 @@ def _sparse_times_dense(h, b, op: str):
         return _matmul_f32(h.dense, b)
     ver = c._versions()  # read once for every cache this call looks up
     route = _spmm_route(c, n, ver)
-    trace(op, route="csr" if route == "csr" else "kernel",
-          shape=(c.nrows, c.ncols), n=n)
-    if route == "csr":
-        return _spmm_op.spmm_csr(*_csr_form(c), b, edges=_spmm_edges(c, False, ver))
+    fields = {"route": "csr" if route == "csr" else "kernel",
+              "shape": (c.nrows, c.ncols), "n": n}
+    trace(op, **fields)
     if route == "large":
         return _spmm_op.spmm_large(_cached_large(c, False, ver), b)
-    return _spmm_op.spmm(_cached_layout(c, ver), b)
+    if route == "csr":
+        form, edges = _csr_form(c), _spmm_edges(c, False, ver)
+        out = _spmm_op.spmm_csr(*form, b, edges=edges)
+        # a plan where the launch reads cached forms only
+        plan = plan and form[1] is c.colinds and form[2] is c.values
+    else:
+        form, edges = _cached_layout(c, ver), None
+        out = _spmm_op.spmm(form, b)
+    if plan and n and torch._C._functorch.maybe_current_level() is None:
+        h.plan = _plan.make(c, b, route_settings(), (form, edges),
+                            _spmm_run(form, edges, b), _events(c, (op, fields)))
+    return out
+
+
+def _spmm_run(form, edges, b):
+    """A plan's launch of SpMM on ``form``, a layout or the CSR tensors
+    (with the rows at their SpMM share edges), for a B like ``b``: on the
+    card the wrapper's launch, its checks done; on the CPU the wrapper as
+    the general path calls it."""
+    csr_form = isinstance(form, tuple)
+    if b.device.type != "cuda":
+        if csr_form:
+            return lambda x: _spmm_op.spmm_csr(*form, x, edges=edges)
+        return lambda x: _spmm_op.spmm(form, x)
+    if csr_form:
+        return _spmm_op.spmm_csr_launch(*form, edges, b)
+    return _spmm_op.spmm_launch(form, b)
 
 
 @spanned("csr.backend.mult_dense")
@@ -707,7 +791,8 @@ def mult_dense(h, B):
     if out_dtype == torch.float64:
         trace("mult_dense", route="torch", shape=(c.nrows, c.ncols), n=B.shape[1])
         return _torch_k.mult_dense(h.torch_handle, B)
-    return _sparse_times_dense(h, B.to(torch.float32), "mult_dense").to(out_dtype)
+    return _sparse_times_dense(h, B.to(torch.float32), "mult_dense",
+                               plan=B.dtype == out_dtype == torch.float32).to(out_dtype)
 
 
 def _spgemm(a_h, b_h, transpose: bool):

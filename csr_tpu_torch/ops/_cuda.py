@@ -7,7 +7,10 @@ first use, into this package's git-ignored ``_build/`` directory; the
 file name carries a hash of the source, of the ``csrc/*.cuh`` headers it
 includes and of the flags.  The library is loaded
 with :mod:`ctypes`; pointers and the stream are passed as ``c_void_p``
-from ``tensor.data_ptr()`` and ``torch.cuda.current_stream().cuda_stream``.
+from ``tensor.data_ptr()`` and :func:`stream`.  The kernel wrappers of
+``ops/`` bind a kernel's :func:`entry` and the matrix's side of its
+arguments once and launch by :func:`call_on`; :func:`spmv_csr`,
+:func:`spmm_csr` and :func:`spmv_bucket` launch from tensors.
 
 Nothing here runs at import: the CPU tests import this module on machines
 with no ``nvcc``.  A build or launch failure raises; nothing falls back.
@@ -93,36 +96,51 @@ def library(name: str):
     return _LIBS[name]
 
 
-def _launch(name: str, *args) -> None:
+def entry(name: str) -> tuple:
+    """``(csrt_<name>, the name of its launch's span)``, the library built
+    and loaded first if needed."""
     if name not in _LAUNCH:
         library(name)
-    fn, span_name = _LAUNCH[name]
+    return _LAUNCH[name]
+
+
+def call(kernel: tuple, *args) -> None:
+    """Call a kernel's :func:`entry` with ``args`` in its launch's span;
+    raise on a CUDA error."""
+    fn, span_name = kernel
     with span(span_name):
         rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{span_name.removeprefix('csr.launch.')} launch"
+                           f" failed: CUDA error {rc}")
 
 
-def spmv_microblock(vals, meta, rbcb, x, y, n_groups: int, shift: int,
-                    nrows: int) -> None:
-    """Launch the micro-block SpMV kernel, ``y += A @ x``, on the current
-    stream.  The caller has checked the tensors."""
-    _launch("spmv_microblock", vals.data_ptr(), meta.data_ptr(),
-            rbcb.data_ptr(), x.data_ptr(), y.data_ptr(), n_groups, shift,
-            nrows, torch.cuda.current_stream(y.device).cuda_stream)
+def call_on(index: int, kernel: tuple, *args) -> None:
+    """:func:`call` with device ``index`` current: the device guard is
+    entered only where another device is current (the caller has made
+    tensors on it, so CUDA is initialised)."""
+    if torch._C._cuda_getDevice() == index:
+        call(kernel, *args)
+    else:
+        with torch.cuda.device(index):
+            call(kernel, *args)
 
 
-def spmm_microblock(vals, meta, rbcb, b, c, n_groups: int, shift: int,
-                    nrows: int, lanes: int, tiles_per_chunk: int) -> None:
-    """Launch the micro-block SpMM kernel, ``C += A @ B`` over the columns
-    of C, with B and C row-major (B's rows a multiple of 4 floats apart,
-    padded past C's width where it must be), on the current stream, by the
-    caller's launch plan (``lanes`` lanes on a row of B, ``tiles_per_chunk``
-    column tiles a block).  The caller has checked the tensors."""
-    _launch("spmm_microblock", vals.data_ptr(), meta.data_ptr(),
-            rbcb.data_ptr(), b.data_ptr(), c.data_ptr(), n_groups, shift,
-            nrows, c.shape[1], b.stride(0), c.stride(0), lanes, tiles_per_chunk,
-            torch.cuda.current_stream(c.device).cuda_stream)
+#: the current stream of a device as a ``cudaStream_t``, where this build
+#: of torch has the raw form (None in a build without CUDA)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream(index: int) -> int:
+    """The current stream of device ``index``, as the ``cudaStream_t`` the
+    entries take."""
+    if _raw_stream is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _raw_stream(index)
+
+
+def _launch(name: str, *args) -> None:
+    call(entry(name), *args)
 
 
 def spmv_bucket(vals, meta, rbcb, held, groups, x, y, grid: int,

@@ -246,7 +246,6 @@ def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
     """``A @ B`` for a micro-block matrix and a dense ``b`` of shape
     ``(ncols, n)``; returns f32 ``(nrows, n)`` on the layout's device.
     ``b`` must lie on that device; another dtype is cast to f32."""
-    global launches
     dev = layout.device
     if b.ndim != 2 or b.shape[0] != layout.ncols or b.device != dev:
         raise ValueError(
@@ -258,27 +257,55 @@ def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"spmm runs on CPU or CUDA tensors, not {dev}")
     check_on_card(layout)
-    b = b.to(torch.float32).contiguous()
-    n = b.shape[1]
-    c = torch.zeros(layout.nrows, n, dtype=torch.float32, device=dev)
-    n_groups = layout.n_microrows // ACC_GROUP
-    if n_groups == 0 or n == 0:
-        return c
-    plan = launch_plan(n, layout.nrows, layout.ncols, n_groups,
-                       align=16 if b.data_ptr() % 16 == 0 else 4)
-    if plan.copy:  # rows padded to a multiple of 4 floats, 16 B aligned
-        padded = b.new_zeros(layout.ncols, plan.ldb)
-        padded[:, :n] = b
-        b = padded
+    b = _as_read(b)
+    if layout.n_microrows == 0 or b.shape[1] == 0:
+        return torch.zeros(layout.nrows, b.shape[1], dtype=torch.float32, device=dev)
+    return spmm_launch(layout, b)(b)
+
+
+_pad = torch.nn.functional.pad
+
+
+def _as_read(b: torch.Tensor) -> torch.Tensor:
+    """B as the micro-block kernel's wrapper reads it: contiguous f32."""
+    return b.to(torch.float32).contiguous()
+
+
+def spmm_launch(layout: MicroBlockLayout, like: torch.Tensor):
+    """:func:`spmm`'s launch on the card for a B like ``like`` (its dtype,
+    shape, strides and alignment; checked by :func:`spmm`), the layout's
+    side and the :func:`launch_plan` bound once: a function of B that
+    makes it contiguous f32, zeroes C, hands the kernel B's padded copy
+    where the plan says so (rows padded to a multiple of 4 floats, 16 B
+    aligned), takes the current stream and launches.  A product plan
+    (``csr_tpu_torch/_plan.py``) keeps it for such a B."""
     from . import _cuda
 
-    with torch.cuda.device(dev):
-        _cuda.spmm_microblock(
-            layout.vals, layout.meta, layout.rbcb, b, c, n_groups,
-            layout.epos_shift, layout.nrows, plan.lanes, plan.tiles_per_chunk,
-        )
-    launches += 1
-    return c
+    read = _as_read(like)
+    convert = read is not like
+    plan = launch_plan(read.shape[1], layout.nrows, layout.ncols,
+                       layout.n_microrows // ACC_GROUP,
+                       align=16 if read.data_ptr() % 16 == 0 else 4)
+    dev, index, nrows, n = layout.device, layout.device.index, layout.nrows, plan.n
+    kernel = _cuda.entry("spmm_microblock")
+    ptrs = (layout.vals.data_ptr(), layout.meta.data_ptr(), layout.rbcb.data_ptr())
+    mid = (layout.n_microrows // ACC_GROUP, layout.epos_shift, nrows, n)
+    tail = (n, plan.lanes, plan.tiles_per_chunk)  # C's row stride, the plan
+    pad = (0, plan.ldb - n) if plan.copy else None
+
+    def launch(b):
+        global launches
+        if convert:
+            b = _as_read(b)
+        c = torch.zeros(nrows, n, dtype=torch.float32, device=dev)
+        if pad is not None:
+            b = _pad(b, pad)
+        _cuda.call_on(index, kernel, *ptrs, b.data_ptr(), c.data_ptr(), *mid,
+                      b.stride(0), *tail, _cuda.stream(index))
+        launches += 1
+        return c
+
+    return launch
 
 
 @spanned("csr.op.spmm_large")
@@ -356,7 +383,6 @@ def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
     no padded copy) and one that adds the carries of rows cut by a share's
     edge, counted once in :data:`csr_launches`; a build or launch failure
     raises.  On CPU tensors :func:`spmm_csr_reference` runs."""
-    global csr_launches
     check_csr_operands(rowptrs, colinds, values, b, x_dim=2, edges=edges,
                        tile=CSR_TILE)
     dev = colinds.device
@@ -364,10 +390,8 @@ def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
         return spmm_csr_reference(rowptrs, colinds, values, b)
     if dev.type != "cuda":
         raise ValueError(f"spmm_csr runs on CPU or CUDA tensors, not {dev}")
-    b = b.to(torch.float32)
     nrows, nnz, n = rowptrs.shape[0] - 1, colinds.shape[0], b.shape[1]
-    if b.stride(1) != 1 or b.stride(0) < n:
-        b = b.contiguous()
+    b = _as_read_csr(b, n)
     if n >= 1 << 31:
         raise ValueError(f"B: {n} columns, more than the kernel indexes")
     if any(t.data_ptr() % 4 for t in (rowptrs, colinds, values, b)
@@ -375,19 +399,59 @@ def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
         raise ValueError("rowptrs, colinds, values and B must be 4 B aligned")
     if nnz == 0 or n == 0:
         return torch.zeros(nrows, n, dtype=torch.float32, device=dev)
-    c = torch.empty(nrows, n, dtype=torch.float32, device=dev)  # every row written
-    align = b.data_ptr() & -b.data_ptr()
-    width, lanes = csr_plan(n, b.stride(0), align)
-    shares = n_shares(nrows, nnz, CSR_TILE)
-    carry = torch.empty(shares, n, dtype=torch.float32, device=dev)
-    carry_row = torch.empty(shares, dtype=torch.int32, device=dev)
-    search = edges is None
-    if search:
-        edges = torch.empty(shares + 1, dtype=torch.int64, device=dev)
+    return spmm_csr_launch(rowptrs, colinds, values, edges, b)(b)
+
+
+def _as_read_csr(b: torch.Tensor, n: int) -> torch.Tensor:
+    """B as the CSR-form kernel reads it: f32, rows of unit stride at
+    least ``n`` floats apart."""
+    b = b.to(torch.float32)
+    return b.contiguous() if b.stride(1) != 1 or b.stride(0) < n else b
+
+
+def spmm_csr_launch(rowptrs: torch.Tensor, colinds: torch.Tensor,
+                    values: torch.Tensor | None, edges: torch.Tensor | None,
+                    like: torch.Tensor):
+    """:func:`spmm_csr`'s launch on the card for a B like ``like`` (its
+    dtype, shape, strides and alignment; checked by :func:`spmm_csr`),
+    the matrix's side and the :func:`csr_plan` bound once: a function of
+    B that takes it as the kernel reads it, allocates C and the scratch,
+    takes the current stream and launches.  A product plan
+    (``csr_tpu_torch/_plan.py``) keeps it for such a B."""
     from . import _cuda
 
-    with torch.cuda.device(dev):
-        _cuda.spmm_csr(rowptrs, edges, search, colinds, values, b, c, carry,
-                       carry_row, width, lanes)
-    csr_launches += 1
-    return c
+    dev = colinds.device
+    index = dev.index
+    nrows, nnz, n = rowptrs.shape[0] - 1, colinds.shape[0], like.shape[1]
+    read = _as_read_csr(like, n)
+    convert = read is not like
+    width, lanes = csr_plan(n, read.stride(0), read.data_ptr() & -read.data_ptr())
+    shares = n_shares(nrows, nnz, CSR_TILE)
+    search = edges is None
+    kernel = _cuda.entry("spmm_csr")
+    head = (rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64))
+    mat = (int(search), colinds.data_ptr(),
+           None if values is None else values.data_ptr())
+    edges_ptr = None if search else edges.data_ptr()
+
+    # one scratch allocation: the shares' carries (n f32 a share), their
+    # rows (int32) and, with search, room for the edges (int64), which the
+    # kernel's first launch fills
+    rows_at = 4 * shares * n
+    edges_at = -(-(rows_at + 4 * shares) // 8) * 8
+    room = edges_at // 8 + search * (shares + 1)
+
+    def launch(b):
+        global csr_launches
+        if convert:
+            b = _as_read_csr(b, n)
+        c = torch.empty(nrows, n, dtype=torch.float32, device=dev)  # every row written
+        scratch = torch.empty(room, dtype=torch.int64, device=dev)
+        s = scratch.data_ptr()
+        _cuda.call_on(index, kernel, *head, s + edges_at if search else edges_ptr,
+                      *mat, b.data_ptr(), b.stride(0), c.data_ptr(), n, nrows, nnz,
+                      s, s + rows_at, width, lanes, _cuda.stream(index))
+        csr_launches += 1
+        return c
+
+    return launch

@@ -107,7 +107,6 @@ def spmv(layout: MicroBlockLayout, x: torch.Tensor,
     With ``out`` (f32, contiguous, ``nrows`` long, on that device) the
     product is added into it and it is returned: a caller that stacks
     the products of several layouts hands in rows of one zeroed tensor."""
-    global launches
     dev = layout.device
     if x.shape != (layout.ncols,) or x.device != dev:
         raise ValueError(
@@ -129,21 +128,44 @@ def spmv(layout: MicroBlockLayout, x: torch.Tensor,
         raise ValueError(f"spmv runs on CPU or CUDA tensors, not {dev}")
 
     check_on_card(layout)
-    x = x.to(torch.float32).contiguous()
-    y = out
-    if y is None:
-        y = torch.zeros(layout.nrows, dtype=torch.float32, device=dev)
     if layout.n_microrows == 0:
-        return y
+        return (torch.zeros(layout.nrows, dtype=torch.float32, device=dev)
+                if out is None else out)
+    x = _as_read(x)
+    return spmv_launch(layout, x)(x, out)
+
+
+def _as_read(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the SpMV kernels read it: contiguous f32."""
+    return x.to(torch.float32).contiguous()
+
+
+def spmv_launch(layout: MicroBlockLayout, like: torch.Tensor):
+    """:func:`spmv`'s launch on the card for an ``x`` like ``like`` (its
+    dtype and strides; checked by :func:`spmv`), the layout's side bound
+    once: a function of ``x`` and ``out`` that takes ``x`` as the kernel
+    reads it, zeroes ``y`` (or takes ``out``), takes the current stream
+    and launches.  A product plan (``csr_tpu_torch/_plan.py``) keeps it
+    for such an ``x``."""
     from . import _cuda
 
-    with torch.cuda.device(dev):
-        _cuda.spmv_microblock(
-            layout.vals, layout.meta, layout.rbcb, x, y,
-            layout.n_microrows // ACC_GROUP, layout.epos_shift, layout.nrows,
-        )
-    launches += 1
-    return y
+    dev, index, nrows = layout.device, layout.device.index, layout.nrows
+    kernel = _cuda.entry("spmv_microblock")
+    ptrs = (layout.vals.data_ptr(), layout.meta.data_ptr(), layout.rbcb.data_ptr())
+    n_groups, shift = layout.n_microrows // ACC_GROUP, layout.epos_shift
+    convert = _as_read(like) is not like
+
+    def launch(x, out=None):
+        global launches
+        if convert:
+            x = _as_read(x)
+        y = torch.zeros(nrows, dtype=torch.float32, device=dev) if out is None else out
+        _cuda.call_on(index, kernel, *ptrs, x.data_ptr(), y.data_ptr(), n_groups,
+                      shift, nrows, _cuda.stream(index))
+        launches += 1
+        return y
+
+    return launch
 
 
 def _check_bucket_operands(stack: BucketStack, held, x, y) -> None:
@@ -441,7 +463,6 @@ def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
     (``torch.empty``) and is bitwise repeatable.  The call counts once in
     :data:`csr_launches`; a build or launch failure raises.  On CPU
     tensors :func:`spmv_csr_reference` runs."""
-    global csr_launches
     check_csr_operands(rowptrs, colinds, values, x, out, edges=edges)
     dev = colinds.device
     if dev.type == "cpu":
@@ -449,7 +470,7 @@ def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
         return y if out is None else out.add_(y)
     if dev.type != "cuda":
         raise ValueError(f"spmv_csr runs on CPU or CUDA tensors, not {dev}")
-    x = x.to(torch.float32).contiguous()
+    x = _as_read(x)
     ptrs = [t.data_ptr() for t in (rowptrs, colinds, values, x, out)
             if t is not None]
     if any(p % 4 for p in ptrs):
@@ -457,20 +478,48 @@ def spmv_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
     nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
     if nnz == 0:
         return torch.zeros(nrows, dtype=torch.float32, device=dev) if out is None else out
-    y = torch.empty(nrows, dtype=torch.float32, device=dev) if out is None else out
+    return spmv_csr_launch(rowptrs, colinds, values, edges, x)(x, out)
+
+
+def spmv_csr_launch(rowptrs: torch.Tensor, colinds: torch.Tensor,
+                    values: torch.Tensor | None, edges: torch.Tensor | None,
+                    like: torch.Tensor):
+    """:func:`spmv_csr`'s launch on the card for an ``x`` like ``like``
+    (its dtype and strides; checked by :func:`spmv_csr`), the matrix's
+    side bound once: a function of ``x`` and ``out`` that takes ``x`` as
+    the kernel reads it, allocates ``y`` (or takes ``out``) and the
+    scratch, takes the current stream and launches.  A product plan
+    (``csr_tpu_torch/_plan.py``) keeps it for such an ``x``."""
+    from . import _cuda
+
+    dev = colinds.device
+    index = dev.index
+    nrows, nnz = rowptrs.shape[0] - 1, colinds.shape[0]
     slots = MAX_BLOCKS_PER_SM * _sm_count(dev)
     search = edges is None
     # the blocks' carries (f32 in int64 slots) and rows; the edges' room
-    scratch = torch.empty(2 * slots + search * (n_shares(nrows, nnz, CSR_TILE) + 1),
-                          dtype=torch.int64, device=dev)
-    from . import _cuda
+    room = 2 * slots + search * (n_shares(nrows, nnz, CSR_TILE) + 1)
+    kernel = _cuda.entry("spmv_csr")
+    head = (rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64))
+    mat = (int(search), colinds.data_ptr(),
+           None if values is None else values.data_ptr())
+    edges_ptr = None if search else edges.data_ptr()
+    convert = _as_read(like) is not like
 
-    with torch.cuda.device(dev):
-        _cuda.spmv_csr(rowptrs, scratch[2 * slots:] if search else edges, search,
-                       colinds, values, x, y, out is None,
-                       scratch[slots:2 * slots], scratch[:slots])
-    csr_launches += 1
-    return y
+    def launch(x, out=None):
+        global csr_launches
+        if convert:
+            x = _as_read(x)
+        y = torch.empty(nrows, dtype=torch.float32, device=dev) if out is None else out
+        scratch = torch.empty(room, dtype=torch.int64, device=dev)
+        s = scratch.data_ptr()  # carry rows, carries, then the edges' room
+        _cuda.call_on(index, kernel, *head, s + 16 * slots if search else edges_ptr,
+                      *mat, x.data_ptr(), y.data_ptr(), nrows, nnz, int(out is None),
+                      s + 8 * slots, s, slots, _cuda.stream(index))
+        csr_launches += 1
+        return y
+
+    return launch
 
 
 @dataclass(frozen=True)

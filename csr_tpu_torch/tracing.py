@@ -33,10 +33,13 @@ Spans, from a public call down:
   checks, the handles);
 * ``csr.backend.<op>``: the ``cuda`` backend's ``mult_vec``,
   ``mult_vec_t``, ``mult_dense``, ``mult_ab`` and ``mult_abt`` (the
-  grad refusal, the route and the cache look-ups);
+  grad refusal, the route and the cache look-ups), entered by a product
+  call only where it takes the general path, not its plan
+  (:mod:`csr_tpu_torch._plan`);
 * ``csr.op.<wrapper>``: the kernel wrappers ``spmv``, ``spmv_large``,
   ``spmv_csr``, ``spmm``, ``spmm_large`` and ``spmm_csr`` (operand
-  checks, allocation, B's padded copy);
+  checks, allocation, B's padded copy); on the card a plan's hit
+  launches from ``csr.api`` with no wrapper span;
 * ``csr.launch.<kernel>``: a kernel's launch through ``ctypes``;
 * ``csr.build.<form>``: a form the ``cuda`` backend builds and caches on
   the matrix: the micro-block layouts (``layout``, ``layout_t``, and
@@ -50,8 +53,10 @@ Spans, from a public call down:
 
 Counters: ``host_reads``, each read of a tensor to the host that waits
 for the card (``.cpu()``, ``int(t)``, ``.tolist()``, a boolean mask's
-gather, ``torch.unique``); ``form_builds.<form>``, each form built; and
-from the events, ``route.<event>.<route>``, ``event.layout-build*``,
+gather, ``torch.unique``); ``form_builds.<form>``, each form built;
+``plan.hit``, ``plan.miss.<reason>`` and ``plan.build``, each product
+call's plan look-up and each plan kept (:mod:`csr_tpu_torch._plan`);
+and from the events, ``route.<event>.<route>``, ``event.layout-build*``,
 ``esc.terms`` and ``esc.chunks``.
 """
 

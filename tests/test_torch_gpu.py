@@ -852,3 +852,74 @@ def test_launch_spans_count_the_launches_on_card(route, cuda_device, monkeypatch
              if k.startswith("csr.launch.")}
     assert spans == {k: n for k, n in counts.items() if n} and sum(spans.values()) == 9
     assert sum(s["count"] for k, s in snap["spans"].items() if k.startswith("csr.api.")) == 9
+
+
+#: route -> (method, B's width or None, B one float off 16 B, the matrix)
+PLAN_ROUTES = {
+    "microblock-spmm-n50": ("mult_dense", 50, False, "ratings"),
+    "microblock-spmm-n52": ("mult_dense", 52, False, "ratings"),
+    "microblock-spmm-n52-misaligned": ("mult_dense", 52, True, "ratings"),
+    "microblock-spmv": ("mult_vec", None, False, "ratings"),
+    "csr-spmm": ("mult_dense", 50, False, "hypersparse"),
+    "csr-spmv": ("mult_vec", None, False, "hypersparse"),
+    "csr-spmv-t": ("mult_vec_t", None, False, "hypersparse"),
+}
+
+
+def _plan_matrix(kind, cuda_device):
+    """``ratings``: 65,536 users x 8,192 items, 24 a user, in 24 of the 32
+    256-item windows by turns, so every 128-row window packs into one
+    group of 32 micro-rows (the micro-block kernels repeat bit for bit)
+    at 8 layout bytes an entry (the micro-block routes); ``hypersparse``:
+    2^20 x 2^18 at 3 a row, an Amazon-shaped matrix on the CSR-form
+    kernels."""
+    rng = np.random.default_rng(94)
+    if kind == "ratings":
+        nrows, ncols, per = 65536, 8192, 24
+        windows = (np.arange(nrows)[:, None] * 7 + np.arange(per)) % 32
+        cols = windows * 256 + rng.integers(0, 256, (nrows, per))
+    else:
+        nrows, ncols, per = 1 << 20, 1 << 18, 3
+        cols = rng.integers(0, ncols, (nrows, per))
+    rp = np.arange(nrows + 1, dtype=np.int64) * per
+    cols = np.sort(cols, axis=1).astype(np.int32).reshape(-1)
+    vals = rng.uniform(0.5, 5, nrows * per).astype(np.float32)
+    return CSR(nrows, ncols, nrows * per, rp, cols, vals, device=cuda_device)
+
+
+@pytest.mark.parametrize("route", list(PLAN_ROUTES))
+def test_plan_hit_is_the_general_path_on_card(route, cuda_device):
+    """A product plan's hit (``csr_tpu_torch/_plan.py``) is bitwise the
+    general path's result, in a fresh tensor each call, on each route
+    that keeps a plan."""
+    from csr_tpu_torch import tracing
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    method, n, misaligned, kind = PLAN_ROUTES[route]
+    c = _plan_matrix(kind, cuda_device)
+    transpose = method == "mult_vec_t"
+    taken = cuda_k._spmm_route(c, n) if n else cuda_k._spmv_route(c, transpose)
+    assert taken == ("csr" if kind == "hypersparse" else "kernel" if n else "microblock")
+    shape = (c.ncols, n) if n else (c.nrows if transpose else c.ncols,)
+    v = torch.rand(shape, device=cuda_device)
+    if misaligned:
+        v = torch.empty(v.numel() + 1, device=cuda_device)[1:].view(shape).copy_(v)
+        assert v.data_ptr() % 16 == 4
+    rec = tracing.enable()
+    try:
+        with use_kernel("cuda"):
+            general = getattr(c, method)(v)
+            hits = [getattr(c, method)(v) for _ in range(3)]
+        torch.cuda.synchronize()
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    assert counters["plan.build"] == 1 and counters["plan.hit"] == 3
+    if kind == "ratings":
+        layout = cuda_k._cached_layout(c)
+        rb = (layout.rbcb[: layout.n_microrows] >> 16).cpu().numpy()
+        assert np.bincount(rb).max() <= mb.ACC_GROUP, "a window spans two groups"
+    ptrs = {general.data_ptr()} | {h.data_ptr() for h in hits}
+    assert len(ptrs) == 4
+    for h in hits:
+        assert torch.equal(h, general)

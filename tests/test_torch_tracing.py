@@ -1,9 +1,10 @@
 """Spans and counters of ``csr_tpu_torch.tracing`` on the CPU (the
 ``cuda`` backend's routing and the kernels' plain versions): nothing
 recorded while off, one ``csr.api`` -> ``csr.backend`` -> ``csr.op``
-chain a product call while on, self times that add up, the forms built
-and the host's reads counted, and the spans as ``torch.profiler``
-ranges while a profiler records."""
+chain a product call while on (``csr.api`` -> ``csr.op`` on a plan's
+hit), self times that add up, the forms built and the host's reads
+counted, and the spans as ``torch.profiler`` ranges while a profiler
+records."""
 
 import threading
 
@@ -31,12 +32,14 @@ def _matrix():
                torch.from_numpy(a.indices), torch.from_numpy(a.data), device="cpu")
 
 
-def _call(c, method):
+def _call(c, method, step=1):
+    """A product of ``c`` by ones; ``step`` > 1 hands it a strided view,
+    another operand key than the contiguous one (``_plan.operand_key``)."""
     if method == "mult_vec":
-        return c.mult_vec(torch.ones(c.ncols))
+        return c.mult_vec(torch.ones(c.ncols * step)[::step])
     if method == "mult_vec_t":
-        return c.mult_vec_t(torch.ones(c.nrows))
-    return c.mult_dense(torch.ones(c.ncols, 8))
+        return c.mult_vec_t(torch.ones(c.nrows * step)[::step])
+    return c.mult_dense(torch.ones(c.ncols, 8 * step)[:, ::step])
 
 
 def test_off_records_nothing_and_events_still_flow():
@@ -54,23 +57,31 @@ def test_off_records_nothing_and_events_still_flow():
     assert kernels.trace is tracing.trace and kernels._listeners is tracing._listeners
 
 
+@pytest.mark.parametrize("planned", [False, True])
 @pytest.mark.parametrize("method", ["mult_vec", "mult_vec_t", "mult_dense"])
-def test_a_product_call_is_one_chain(method):
+def test_a_product_call_is_one_chain(method, planned):
+    """The general path is one csr.api -> csr.backend -> csr.op chain; a
+    plan's hit skips the backend: csr.api -> csr.op (on the CPU a plan
+    launches through the wrapper, which runs the plain version)."""
     c = _matrix()
     rec = tracing.enable()
     with kernels.use_kernel("cuda"):
-        _call(c, method)  # the forms are built here
+        _call(c, method)  # the forms and the plan are built here
         rec.reset()
-        _call(c, method)
+        _call(c, method, step=1 if planned else 2)
     snap = tracing.snapshot()
     by_name = {r.name: r for r in snap["records"]}
-    assert len(snap["records"]) == 3 == len(by_name), list(by_name)
-    api, backend = by_name[f"csr.api.{method}"], by_name[f"csr.backend.{method}"]
+    assert len(snap["records"]) == 3 - planned == len(by_name), list(by_name)
+    api = by_name[f"csr.api.{method}"]
+    backend = by_name.get(f"csr.backend.{method}", api)
     (op,) = [r for r in snap["records"] if r.name.startswith("csr.op.")]
-    assert (api.parent, backend.parent, op.parent) == (0, api.id, backend.id)
+    assert (backend is api) == planned
+    assert (api.parent, op.parent) == (0, backend.id)
+    assert backend.parent in (0, api.id)
     assert api.call == backend.call == op.call == api.id
     assert api.start_ns <= backend.start_ns <= op.start_ns
     assert op.end_ns <= backend.end_ns <= api.end_ns
+    assert snap["counters"]["plan.hit" if planned else "plan.miss.key"] == 1
     for r in snap["records"]:
         s = snap["spans"][r.name]
         children = sum(k.end_ns - k.start_ns for k in snap["records"] if k.parent == r.id)
@@ -161,7 +172,9 @@ def test_spans_are_profiler_ranges_only_while_recording(monkeypatch):
         c.mult_vec(x)  # no profiler: no range
     assert entered == []
     (op,) = [n for n in ranges if n.startswith("csr.op.")]
-    chain = ["caller", "csr.api.mult_vec", "csr.backend.mult_vec", op]
+    # the second call on the matrix: its plan's hit, with no backend span
+    assert "csr.backend.mult_vec" not in ranges
+    chain = ["caller", "csr.api.mult_vec", op]
     for outer, inner in zip(chain, chain[1:]):
         assert ranges[outer][0] <= ranges[inner][0] <= ranges[inner][1] <= ranges[outer][1]
 
