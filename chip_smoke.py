@@ -434,9 +434,10 @@ def phase_environment():
     assert threads == 32 * spmv_op.WARPS_PER_BLOCK, threads
     print(f"[1] spmv_bucket: no spills, {blocks} block an SM of {threads} "
           f"threads and {smem} B of shared memory, by the CUDA runtime")
-    # the CSR-form kernels: no spills (spmv_csr's build is held to 32
-    # registers, eight blocks an SM)
-    for name in ("spmv_csr", "spmm_csr"):
+    # the CSR-form kernels and the micro-block SpMV: no spills (spmv_csr's
+    # build is held to 32 registers, eight blocks an SM; spmv_microblock's
+    # to 32, sixteen blocks an SM)
+    for name in ("spmv_csr", "spmm_csr", "spmv_microblock"):
         spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                             _cuda.build_log[name])
         assert spills and all(st == ld == "0" for st, ld in spills), _cuda.build_log[name]

@@ -216,6 +216,7 @@ class CSR:
                    torch.zeros(nnz, dtype=COLIND_DTYPE), vs, device=device)
 
     @classmethod
+    @spanned("csr.construct.from_coo")
     def from_coo(cls, rows, cols, vals, shape=None, *, rpdtype=None,
                  device=None):
         """

@@ -19,12 +19,21 @@
 //     padding micro-row (count 0) loads nothing more, and slots at or past
 //     the count load neither their value nor x.  So padding never forms
 //     0 * x, and an inf in x reaches only the rows whose entries use it;
-//   * the 128-slot exclusive prefix is exact f32: a 4-slot serial prefix
-//     in registers, then a warp shuffle scan of the 32 lane totals (the
-//     TPU kernel needed a two-pass bf16 matmul for this);
+//   * the 128-slot exclusive prefix of the f32 products is taken in
+//     double: a 4-slot serial prefix in registers, then a warp shuffle
+//     scan of the 32 lane totals (the TPU kernel needed a two-pass bf16
+//     matmul for this).  In f32, P[epos[r]] - P[epos[r-1]] carried the
+//     rounding of the whole micro-row's sum before the row: at
+//     MovieLens-25M's converged Lanczos vector it read up to 2.04e-5 of a
+//     short row's magnitudes, past the benchmark's limit of 2e-5; in
+//     double, 2.3e-7.  A segmented f32 scan (each row's own slots) was
+//     as exact and 37% slower, a compensated f32 prefix 29% (PERF.md);
 //   * row r of the micro-row's window gets P[epos[r]] - P[epos[r-1]],
-//     formed at once: nothing on this card makes the difference cheaper to
-//     defer, as the TPU kernel did;
+//     formed at once and rounded to f32: nothing on this card makes the
+//     difference cheaper to defer, as the TPU kernel did;
+//   * 16 blocks an SM (at most 32 registers), the most a 128-thread block
+//     allows: the kernel waits on its loads and its scan's chain, and the
+//     double scan took 18% more time at 12 blocks an SM, 9-12% at 16;
 //   * the layout pads every stripe to 32 micro-rows, so a block of 4
 //     warps takes one aligned group of 32 micro-rows with a single row
 //     window rb, sums the warps' rows in shared memory, and adds each row
@@ -37,7 +46,7 @@
 
 namespace {
 
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kWarps * 32, 16)
 spmv_microblock_kernel(const float4* __restrict__ vals4,
                        const uint2* __restrict__ meta4,
                        const int32_t* __restrict__ rbcb,

@@ -100,7 +100,7 @@ from csr_tpu_torch.ops import microblock
 from csr_tpu_torch.ops import spgemm as _spgemm_op
 from csr_tpu_torch.ops import spmm as _spmm_op
 from csr_tpu_torch.ops import spmv as _spmv_op
-from csr_tpu_torch.tracing import count, span, spanned
+from csr_tpu_torch.tracing import count, recording, span, spanned
 
 # Per-operation capacity, from the card's memory: an H100 holds 80 GB.  A
 # layout costs 6 B per padded slot, 12 B per stored entry at fill 0.5.  A
@@ -351,14 +351,34 @@ def _cached_csr_t(csr, versions=None):
     return _cached(csr, "_csr_t_cache", _build_csr_t, True, versions)
 
 
-def _build_spmv_edges(csr, transpose: bool):
+def _build_edges(csr, transpose: bool, tile: int) -> torch.Tensor:
+    """The rows at the share edges of ``tile`` merge items of ``csr`` (or
+    of its transpose).  While tracing records, it also counts the split:
+    ``csr.edges.shares``, the shares; ``csr.edges.rows_cut``, the rows
+    whose entries a share edge cuts; ``csr.edges.rows_spanning``, the rows
+    whose entries lie in three shares or more.  Reading them back waits
+    for the card, a read made for the recorder alone (not counted in
+    ``host_reads``)."""
     rowptrs = _cached_csr_t(csr)[0] if transpose else csr.rowptrs
-    return _spmv_op.csr_shares(rowptrs, csr.nnz, _spmv_op.CSR_TILE)[0]
+    rows, entries = _spmv_op.csr_shares(rowptrs, csr.nnz, tile)
+    if recording():
+        # an edge cuts the row it stops in where entries of that row lie
+        # on both sides of it; the edges come in row order
+        at = rows.clamp_max(rowptrs.shape[0] - 2)
+        inside = (rowptrs[at] < entries) & (entries < rowptrs[at + 1])
+        _, cuts = torch.unique_consecutive(at[inside], return_counts=True)
+        count("csr.edges.shares", rows.numel() - 1)
+        count("csr.edges.rows_cut", cuts.numel())
+        count("csr.edges.rows_spanning", int((cuts >= 2).sum()))
+    return rows
+
+
+def _build_spmv_edges(csr, transpose: bool):
+    return _build_edges(csr, transpose, _spmv_op.CSR_TILE)
 
 
 def _build_spmm_edges(csr, transpose: bool):
-    rowptrs = _cached_csr_t(csr)[0] if transpose else csr.rowptrs
-    return _spmv_op.csr_shares(rowptrs, csr.nnz, _spmm_op.CSR_TILE)[0]
+    return _build_edges(csr, transpose, _spmm_op.CSR_TILE)
 
 
 def _spmv_edges(csr, transpose: bool, versions=None) -> torch.Tensor:

@@ -49,14 +49,20 @@ Spans, from a public call down:
   and the route statistic (``stat``);
 * ``csr.esc.plan``, ``csr.esc.expand``, ``csr.esc.compress`` and
   ``csr.structure.transpose``: ESC's host plan and its two halves, and
-  the transpose of B that ``A @ B^T`` makes.
+  the transpose of B that ``A @ B^T`` makes;
+* ``csr.construct.from_coo``: ``CSR.from_coo``, its read of the triples
+  to the host, the native conversion and the upload.
 
 Counters: ``host_reads``, each read of a tensor to the host that waits
 for the card (``.cpu()``, ``int(t)``, ``.tolist()``, a boolean mask's
 gather, ``torch.unique``); ``form_builds.<form>``, each form built;
 ``plan.hit``, ``plan.miss.<reason>`` and ``plan.build``, each product
 call's plan look-up and each plan kept (:mod:`csr_tpu_torch._plan`);
-and from the events, ``route.<event>.<route>``, ``event.layout-build*``,
+``csr.edges.shares``, ``csr.edges.rows_cut`` and
+``csr.edges.rows_spanning``, the split of each set of CSR-form share
+edges built (its shares, the rows a share edge cuts, the rows over
+three shares or more: ``kernels/cuda.py:_build_edges``), set-up figures
+that a cached split never counts again; and from the events, ``route.<event>.<route>``, ``event.layout-build*``,
 ``esc.terms`` and ``esc.chunks``.
 """
 
@@ -73,7 +79,8 @@ from typing import NamedTuple
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["count", "disable", "enable", "snapshot", "span", "spanned", "trace"]
+__all__ = ["count", "disable", "enable", "recording", "snapshot", "span", "spanned",
+           "trace"]
 
 _TRACE = bool(os.environ.get("CSR_TPU_TRACE"))
 _trace_log = logging.getLogger("csr_tpu_torch.trace")
@@ -259,6 +266,12 @@ def spanned(name: str):
                 return fn(*args, **kwargs)
         return call
     return wrap
+
+
+def recording() -> bool:
+    """Whether recording is on: a site whose counters cost work of their
+    own to compute does it only then."""
+    return _recorder is not None
 
 
 def count(name: str, n: int = 1) -> None:
