@@ -2770,9 +2770,11 @@ def phase_spmm_csr(fl, ml, card):
                 _listeners.pop()
             if name in ("realistic", "4.3M x 4,096") and n == 50:
                 assert route == "csr", (tag, route)
-            if route == "csr":  # the call built no layout
+            if route == "csr":  # the call built no micro-block layout (the
+                # column panels are the CSR form's own, where B passes L2)
                 want = {"spmm_csr": 1}
-                assert not [e for e in events if e.startswith("layout-build")], events
+                assert not [e for e in events if e.startswith("layout-build")
+                            and e != "layout-build-panels"], events
                 for attr in ("_mb_layout_cache", "_mb_large_cache"):
                     assert n != widths[0] or getattr(csr, attr, None) is None, (tag, attr)
             elif route == "large":
@@ -3070,6 +3072,240 @@ def spmm_csr_summary(rows, corner_err):
     return out
 
 
+#: slabs (MiB of L2 a panel's rows of B may take) that phase 23 times
+PANEL_SLABS_MIB = (8, 12, 16, 20, 25, 30, 40)
+#: shares of a rating set's entries that phase 23 keeps to thin its rows
+PANEL_KEEP = (1 / 2, 1 / 4, 1 / 8, 1 / 16, 1 / 32)
+
+
+def panels_of(csr, slab_bytes, n):
+    """The column panels of ``csr`` with B ``n`` wide and a slab of
+    ``slab_bytes`` (the rule's count for that slab, with no threshold),
+    built on the card, and the seconds the build took."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    k = cuda_k.panels_for_slab(csr.ncols, n, slab_bytes)
+    if k < 2:
+        return None, 0.0
+    rp, ci, _ = cuda_k._csr_form(csr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    panels = spmm_op.split_panels(rp, ci, spmm_op.panel_bounds(csr.ncols, k))
+    torch.cuda.synchronize()
+    return panels, time.perf_counter() - t0
+
+
+def thinned(csr, keep, seed):
+    """``csr`` with each entry kept with chance ``keep`` (on the card)."""
+    from csr_tpu_torch import CSR
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.rand(csr.nnz, device="cuda", generator=g) < keep
+    rows = torch.repeat_interleave(torch.arange(csr.nrows, device="cuda"),
+                                   torch.diff(csr.rowptrs.long()), output_size=csr.nnz)
+    counts = torch.bincount(rows[mask], minlength=csr.nrows)
+    rp = torch.zeros(csr.nrows + 1, dtype=torch.int64, device="cuda")
+    torch.cumsum(counts, 0, out=rp[1:])
+    ci, v = csr.colinds[mask], csr.values[mask]
+    return CSR(csr.nrows, csr.ncols, int(ci.shape[0]), rp.to(csr.rowptrs.dtype), ci, v)
+
+
+#: the panelled CSR-form SpMM's largest gap to the plain version, as a
+#: share of |A| |B| (the card tests' limit)
+PANEL_ERR_LIMIT = 1e-6
+
+
+def plain_and_scale(fm, b):
+    """``spmm_csr_reference`` of the CSR form ``fm`` by ``b`` on the card,
+    and |A| |B| (the same of the absolute values), the scale of each
+    element's rounding error."""
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    rp, ci, v = fm
+    return (spmm_op.spmm_csr_reference(rp, ci, v, b),
+            spmm_op.spmm_csr_reference(rp, ci, None if v is None else v.abs(), b.abs()))
+
+
+def gap_to(c, plain):
+    """The largest ``|c - ref|`` as a share of its element's |A| |B|, for
+    ``plain`` = (ref, scale) of :func:`plain_and_scale`."""
+    ref, scale = plain
+    return float(((c - ref).abs() / scale.clamp_min(1e-30)).max())
+
+
+def time_panels(tag, csr, b, slabs, card, turns=1):
+    """[23] The CSR-form SpMM of ``csr`` by ``b`` in one pass and in the
+    panels of each slab (MiB), by device_ms in turns (one pass first and
+    last); the one pass and each panelled result held to the plain version
+    within PANEL_ERR_LIMIT of |A| |B|, each panelled one run twice for
+    equal bits.  Returns rows of (slab, panels, entries a row a panel,
+    ms, one-pass ms, ratio, error), the panelled calls made and the plain
+    version (ref, scale)."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    fm = cuda_k._csr_form(csr)
+    edges = cuda_k._spmm_edges(csr)
+    n = b.shape[1]
+    plain = plain_and_scale(fm, b)
+    one = lambda: spmm_op.spmm_csr(*fm, b, edges=edges)
+    c1 = one()
+    one_err = gap_to(c1, plain)
+    assert one_err <= PANEL_ERR_LIMIT, (tag, "one pass", one_err)
+    scale = float(c1.abs().max())
+    base = [device_ms(one, 5)]
+    rows = []
+    calls = [0]
+    for slab in slabs:
+        panels, build_s = panels_of(csr, int(slab * (1 << 20)), n)
+        if panels is None:
+            continue
+
+        def fn(panels=panels):
+            calls[0] += 1
+            return spmm_op.spmm_csr(*fm, b, panels=panels)
+
+        c = fn()
+        same = bool(torch.equal(fn(), c))
+        err = gap_to(c, plain)
+        gap = float((c - c1).abs().max()) / scale
+        ms = [device_ms(fn, 5) for _ in range(turns)]
+        t = float(np.median(ms))
+        per = csr.nnz / csr.nrows / panels.count
+        rows.append(dict(matrix=tag, n=n, slab_mib=slab, panels=panels.count,
+                         per_row_panel=per, ms=t, build_s=build_s,
+                         metadata_bytes=panels.nbytes, max_err=err))
+        print(f"[23] {tag}, n {n}: slab {slab} MiB, {panels.count} panels, "
+              f"{per:.2f} entries a row a panel: {' '.join(f'{x:.5f}' for x in ms)} ms "
+              f"(one pass {base[-1]:.5f}); built in {build_s:.3f} s, "
+              f"{panels.nbytes / csr.nrows / panels.count:.2f} B a row a panel; "
+              f"gap to the plain version {err:.3g} of |A||B| (one pass {one_err:.3g}), "
+              f"to one pass {gap:.3g} of max |C|; repeatable {same}; card {card}")
+        assert same, (tag, slab, "the panelled product is not bitwise repeatable")
+        assert err <= PANEL_ERR_LIMIT, (tag, slab, err)
+        del c, fn, panels
+    base.append(device_ms(one, 5))
+    one_ms = float(np.median(base))
+    for r in rows:
+        r["one_pass_ms"] = one_ms
+        r["ratio"] = one_ms / r["ms"]
+    print(f"[23] {tag}, n {n}: one pass {' '.join(f'{x:.5f}' for x in base)} ms; "
+          f"one-pass time / panelled time by slab: "
+          + "; ".join(f"{r['slab_mib']} MiB ({r['panels']}) {r['ratio']:.3f}" for r in rows))
+    return rows, calls[0], plain
+
+
+def api_panels(tag, csr, b, plain, card):
+    """[23] ``csr.mult_dense(b)`` through the API at the port's own rule:
+    the panels built once, then three plan hits, each bitwise the first
+    call's result, the rule's panels counted a call, and the first within
+    PANEL_ERR_LIMIT of |A| |B| of the plain version.  Returns the
+    panelled calls and the gap."""
+    from csr_tpu_torch import tracing
+    from csr_tpu_torch.kernels import cuda as cuda_k, use_kernel
+
+    k = cuda_k.spmm_panel_count(csr.nrows, csr.ncols, csr.nnz, b.shape[1],
+                                cuda_k._l2_bytes(b.device))
+    rec = tracing.enable()
+    try:
+        with use_kernel("cuda"):
+            c = csr.mult_dense(b)
+            hits = [csr.mult_dense(b) for _ in range(3)]
+        torch.cuda.synchronize()
+        snap = rec.snapshot()
+    finally:
+        tracing.disable()
+    counters = snap["counters"]
+    build = snap["spans"].get("csr.build.spmm_panels", {}).get("total_ns", 0) / 1e9
+    equal = all(torch.equal(h, c) for h in hits)
+    err = gap_to(c, plain)
+    print(f"[23] {tag}.mult_dense through the API: the rule's {k} panels; counters "
+          f"{ {n: v for n, v in counters.items() if 'panel' in n or n.startswith('plan.')} }; "
+          f"csr.build.spmm_panels {build:.3f} s; hits equal {equal}; gap to the plain "
+          f"version {err:.3g} of |A||B|; card {card}")
+    assert k > 1, (tag, "the rule keeps one pass")
+    assert equal, (tag, "a plan's hit is not bitwise the first call")
+    assert counters.get("plan.hit") == 3, counters
+    assert counters.get("csr.spmm.panels") == 4 * k, counters
+    assert counters.get("form_builds.spmm_panels") == 1, counters
+    assert err <= PANEL_ERR_LIMIT, (tag, err)
+    return 4, err
+
+
+def phase_spmm_panels(card):
+    """[23] The CSR-form SpMM in column panels: at KDD-Cup'11's R . Q and
+    Rt . P (the benchmark's generator, seed 1) in one pass and at each
+    slab of PANEL_SLABS_MIB; the same R thinned to PANEL_KEEP of its
+    entries (rows of 131 down to 8 entries) at each slab, and the 131,072
+    x 2^22 and 2^20 sweep matrices of phase 22, to find the entries a row
+    a panel below which one pass wins; every result held to the plain
+    version; then the port's rule at each, the metadata's build time and
+    bytes, and mult_dense at both yahoo products through the API (the
+    rule's panels, the plan's hits).  Returns the sweep's rows, the
+    panelled calls and their largest gap to the plain version."""
+    from cardbench import generate
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    t0 = time.perf_counter()
+    cfg = generate.load_config("yahoo-kddcup11")
+    trip = generate.ratings(cfg, 1, "cuda")
+    r = CSR.from_coo(trip["rows"], trip["cols"], trip["vals"], shape=trip["shape"],
+                     device="cuda")
+    del trip
+    rt = r.transpose()
+    torch.cuda.synchronize()
+    print(f"[23] yahoo R {r.nrows} x {r.ncols}, {r.nnz} entries, and Rt made in "
+          f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    q = torch.randn(r.ncols, 50, device="cuda", generator=g)
+    p = torch.randn(r.nrows, 50, device="cuda", generator=g)
+    calls, errs = 0, []
+    sweep = []
+    for tag, m, b in (("yahoo R.Q", r, q), ("yahoo Rt.P", rt, p)):
+        rows, made, plain = time_panels(tag, m, b, PANEL_SLABS_MIB, card, turns=2)
+        api_calls, api_err = api_panels(tag, m, b, plain, card)
+        sweep += rows
+        calls += made + api_calls
+        errs.append(api_err)
+        del plain
+    del rt, p
+    torch.cuda.empty_cache()
+    for keep in PANEL_KEEP:
+        thin = thinned(r, keep, seed=int(1 / keep))
+        rows, made, _ = time_panels(f"yahoo R thinned to {keep:.4g}", thin, q,
+                                    (12, 20, 30), card)
+        sweep += rows
+        calls += made
+        del thin
+        torch.cuda.empty_cache()
+    for per_row, ncols in ((12, 1 << 22), (64, 1 << 20), (327, 1 << 20)):
+        rp, cols, vals = power_law_rows(131_072, ncols, per_row, seed=per_row + ncols)
+        m = CSR(131_072, ncols, len(cols), rp, cols, vals)
+        m.sort_rows()  # the panels take rows in column order
+        on_card(m)
+        bd = torch.randn(ncols, 50, device="cuda", generator=g)
+        rows, made, _ = time_panels(f"{per_row} a row over {ncols}", m, bd,
+                                    (12, 20, 30), card)
+        sweep += rows
+        calls += made
+        del m, bd
+        torch.cuda.empty_cache()
+    l2 = cuda_k._l2_bytes(torch.device("cuda"))
+    print(f"[23] L2 {l2} B; the port's slab {cuda_k._PANEL_L2_SHARE} of it "
+          f"({l2 * cuda_k._PANEL_L2_SHARE / (1 << 20):.1f} MiB), threshold "
+          f"{cuda_k._PANEL_MIN_ENTRIES} entries a row a panel")
+    for row in sorted(sweep, key=lambda x: x["per_row_panel"]):
+        print(f"[23] {row['per_row_panel']:.2f} a row a panel, slab {row['slab_mib']} "
+              f"MiB ({row['panels']}): ratio {row['ratio']:.3f} ({row['matrix']})")
+    max_err = max(errs + [row["max_err"] for row in sweep])
+    print(f"[23] {calls} panelled calls, largest gap to the plain version {max_err:.3g} "
+          f"of |A||B| (limit {PANEL_ERR_LIMIT})")
+    print(json.dumps({"spmm_panels_sweep": sweep}))
+    return sweep, calls, max_err
+
+
 def stamp(tag, t0=time.perf_counter()):
     """Print the seconds since the script started, after ``tag``."""
     print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s since the start")
@@ -3215,6 +3451,8 @@ def main():
     phase_stat_memory(card)
     phase_inplace(card)
     stamp("phase 22")
+    _, panel_launches, panel_err = phase_spmm_panels(card)
+    stamp("phase 23")
 
     def yardsticks(name):
         """Device times, the bound and the chained times at the flagship,
@@ -3237,7 +3475,8 @@ def main():
         dict(BUCKET_KERNEL, launches=bucket_launches, **bucket),
         dict(CSR_KERNEL, launches=csr_launches, **csr_summary(csr_rows, csr_err)),
         dict(CSR_SPMM_KERNEL, launches=spmm_csr_launches,
-             **spmm_csr_summary(spmm_csr_rows, spmm_csr_err)),
+             **spmm_csr_summary(spmm_csr_rows, spmm_csr_err),
+             panel_launches=panel_launches, panel_max_err_share=panel_err),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -91,7 +91,8 @@ class CSR:
                  "_shard_cache", "_mb_large_cache", "_mb_large_t_cache",
                  "_csr_t_cache", "_mb_stat_cache", "_spmv_edges_cache",
                  "_spmv_edges_t_cache", "_spmm_edges_cache",
-                 "_spmm_edges_t_cache", "_plans")
+                 "_spmm_edges_t_cache", "_spmm_panels_cache",
+                 "_spmm_panels_t_cache", "_plans")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True,
                  device=None):

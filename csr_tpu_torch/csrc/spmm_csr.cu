@@ -62,6 +62,20 @@
 //     carries in share order and adds them to the row, which the first
 //     launch stored.  No atomics anywhere: the result is bitwise
 //     repeatable.
+//   * Column panels (where B is larger than a slab of L2 and rows are long;
+//     kernels/cuda.py's rule): A's columns are cut into K contiguous
+//     panels, and the product runs panel after panel on the stream, C =
+//     A_0 B_0, then C += A_k B_k, so every block in flight gathers from
+//     one panel's rows of B, which L2 holds.  A row's entries in a panel
+//     are a run of the row (its columns come in order): panel k has row
+//     pointers of its own (int32, the runs' lengths summed) and each run's
+//     first entry less its row pointer (`base`), so the block stages its
+//     share's entries from their runs, with no copy of the matrix
+//     (ops/spmm.py:Panels).  Every panel is its own merge path, with its
+//     own share edges, walked as above; the first launch stores every row,
+//     later ones add a row's sum into C only where the panel holds entries
+//     of it.  Each row's sum is still its own products in f32, in a fixed
+//     order: the result is bitwise repeatable.
 // wgmma and TMA have no role in a gather-bound SpMM of this kind yet.
 
 #include <cstdint>
@@ -159,6 +173,39 @@ __device__ __forceinline__ void store_row(float* __restrict__ c, int n,
   }
 }
 
+// C[row, c0 + col_of(i)] += acc[i] for the columns below n (a panel after
+// the first), C read and written by streaming accesses, so that C's lines
+// do not take the L2 that holds the panel's rows of B.
+template <int kW>
+__device__ __forceinline__ void add_row(float* __restrict__ c, int n,
+                                        int64_t row, int c0, int l, int lanes,
+                                        const float acc[4]) {
+  float* out = c + row * n + c0;
+#pragma unroll
+  for (int j = 0; j < 4 / kW; ++j) {
+    const int col = kW * (l + lanes * j);
+    if (c0 + col < n) {
+      float q[kW];
+      if (kW == 4) {
+        const float4 t = __ldcs(reinterpret_cast<const float4*>(out + col));
+        q[0] = t.x;
+        q[1] = t.y;
+        q[2] = t.z;
+        q[3] = t.w;
+      } else if (kW == 2) {
+        const float2 t = __ldcs(reinterpret_cast<const float2*>(out + col));
+        q[0] = t.x;
+        q[1] = t.y;
+      } else {
+        q[0] = __ldcs(out + col);
+      }
+#pragma unroll
+      for (int e = 0; e < kW; ++e) q[e] += acc[kW * j + e];
+      store_c<kW>(out + col, q);
+    }
+  }
+}
+
 // Rows of the share wholly consumed at share-relative merge diagonal d: the
 // first i with ends[i] + i + 1 > d (ends relative to the share's first
 // entry), by a binary search in shared memory.
@@ -176,13 +223,17 @@ __device__ __forceinline__ int rows_at(const int32_t* ends, int nr, int ne,
 // One block a share: rows r0 .. r1 - 1 end in it (r0, r1 the rows wholly
 // consumed at its edges), its entries are k0 .. k1 - 1.  kWarpRow: a warp
 // a row (lanes == 32), built apart so that its lane arithmetic folds away.
-template <typename P, int kW, bool kWarpRow>
+// kPanel: a column panel (rowptrs its own row pointers, nnz its entries,
+// `base` each row's run's first entry less its row pointer); with `add`,
+// C += the panel's product, else C = it.
+template <typename P, int kW, bool kWarpRow, bool kPanel>
 __device__ __forceinline__ void spmm_csr_share(
     const P* __restrict__ rowptrs, const int64_t* __restrict__ edges,
     const int32_t* __restrict__ colinds, const float* __restrict__ values,
     const float* __restrict__ b, int64_t ldb, float* __restrict__ c, int n,
     int lanes_arg, int64_t nrows, int64_t nnz, float* __restrict__ carry,
-    int32_t* __restrict__ carry_row) {
+    int32_t* __restrict__ carry_row, const int32_t* __restrict__ base,
+    bool add) {
   const int lanes = kWarpRow ? 32 : lanes_arg;
   __shared__ int32_t ends[kTile];  // row ends, relative to entry k0
   __shared__ int32_t cols[kTile];
@@ -190,6 +241,7 @@ __device__ __forceinline__ void spmm_csr_share(
   __shared__ float first[kPass];  // a unit's first ended row, by unit
   __shared__ float last[kPass];   // a unit's unended tail, by unit
   __shared__ int32_t first_row[kMaxUnits];  // -1: the unit ended no row
+  __shared__ int32_t row_base[kPanel ? kTile + 1 : 1];  // base, rows r0 .. r1
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int per_warp = 32 / lanes;  // units a warp
   const int sub = lane / lanes, l = lane - sub * lanes;
@@ -207,9 +259,32 @@ __device__ __forceinline__ void spmm_csr_share(
   const int ne = int(d1 - r1 - k0);    // entries in the share
   for (int i = threadIdx.x; i < nr; i += kThreads)
     ends[i] = int32_t(int64_t(rowptrs[r0 + 1 + i]) - k0);
-  for (int i = threadIdx.x; i < ne; i += kThreads) {
-    cols[i] = __ldcs(colinds + k0 + i);
-    vals[i] = values ? __ldcs(values + k0 + i) : 1.f;
+  // where row r0's run in the share starts (at or before 0): a panel's row
+  // with no entry in it is one whose end is where it starts
+  int32_t start0 = 0;
+  if constexpr (kPanel) {
+    start0 = int32_t(int64_t(rowptrs[r0]) - k0);
+    for (int i = threadIdx.x; i <= nr && r0 + i < nrows; i += kThreads)
+      row_base[i] = base[r0 + i];
+    __syncthreads();
+    // entry i is of local row j, the first whose end is past i (nr: the
+    // tail), and lies at row_base[j] + k0 + i in the matrix
+    for (int i = threadIdx.x; i < ne; i += kThreads) {
+      int lo = 0, hi = nr;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (ends[mid] <= i) lo = mid + 1;
+        else hi = mid;
+      }
+      const int64_t at = int64_t(row_base[lo]) + k0 + i;
+      cols[i] = __ldcs(colinds + at);
+      vals[i] = values ? __ldcs(values + at) : 1.f;
+    }
+  } else {
+    for (int i = threadIdx.x; i < ne; i += kThreads) {
+      cols[i] = __ldcs(colinds + k0 + i);
+      vals[i] = values ? __ldcs(values + k0 + i) : 1.f;
+    }
   }
   __syncthreads();
 
@@ -228,6 +303,7 @@ __device__ __forceinline__ void spmm_csr_share(
     const int k_stop = ud1 - rb;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
     while (true) {
+      const int begin = ki;
       const int stop = ri < rb ? ends[ri] : k_stop;  // row ri's last entry here
       for (; ki + kU <= stop; ki += kU)  // whole batches: no predicates
         accumulate<kW>(b, ldb, c0, n, l, lanes, cols + ki, vals + ki, kU, acc);
@@ -240,8 +316,10 @@ __device__ __forceinline__ void spmm_csr_share(
         fr = ri;
 #pragma unroll
         for (int i = 0; i < 4; ++i) my_first[col_of<kW>(l, lanes, i)] = acc[i];
-      } else {
+      } else if (!kPanel || !add) {
         store_row<kW>(c, n, r0 + ri, c0, l, lanes, acc);
+      } else if (begin < stop) {  // the row started in the unit: all its run
+        add_row<kW>(c, n, r0 + ri, c0, l, lanes, acc);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[i] = 0.f;
@@ -257,9 +335,15 @@ __device__ __forceinline__ void spmm_csr_share(
     for (int t = threadIdx.x; t < pass; t += kThreads) {
       float run = 0.f;
       for (int u = 0; u < units; ++u) {
-        if (first_row[u] >= 0) {
-          if (c0 + t < n) __stcs(c + (r0 + first_row[u]) * n + c0 + t,
-                                 run + first[u * pass + t]);
+        const int j = first_row[u];
+        if (j >= 0) {
+          if (c0 + t < n) {
+            float* out = c + (r0 + j) * n + c0 + t;
+            if (!kPanel || !add)
+              __stcs(out, run + first[u * pass + t]);
+            else if (ends[j] != (j ? ends[j - 1] : start0))
+              __stcs(out, __ldcs(out) + (run + first[u * pass + t]));
+          }
           run = last[u * pass + t];
         } else {
           run += last[u * pass + t];
@@ -283,7 +367,7 @@ __device__ __forceinline__ void spmm_csr_share(
 
 template <typename P, int kW, bool kWarpRow>
 __global__ void __launch_bounds__(kThreads) spmm_csr_kernel(SPMM_CSR_PARAMS) {
-  spmm_csr_share<P, kW, kWarpRow>(SPMM_CSR_ARGS);
+  spmm_csr_share<P, kW, kWarpRow, false>(SPMM_CSR_ARGS, nullptr, false);
 }
 
 // A warp a row with 16 B loads: held to four blocks an SM (64 registers),
@@ -291,7 +375,21 @@ __global__ void __launch_bounds__(kThreads) spmm_csr_kernel(SPMM_CSR_PARAMS) {
 // n = 50 its residency).
 template <typename P>
 __global__ void __launch_bounds__(kThreads, 4) spmm_csr_kernel_row16(SPMM_CSR_PARAMS) {
-  spmm_csr_share<P, 4, true>(SPMM_CSR_ARGS);
+  spmm_csr_share<P, 4, true, false>(SPMM_CSR_ARGS, nullptr, false);
+}
+
+// One column panel (P is int32_t: the panel's own row pointers): the
+// kernels above with the panel's staging, adding into C with `add`.
+template <typename P, int kW, bool kWarpRow>
+__global__ void __launch_bounds__(kThreads) spmm_csr_panel_kernel(
+    SPMM_CSR_PARAMS, const int32_t* __restrict__ base, int add) {
+  spmm_csr_share<P, kW, kWarpRow, true>(SPMM_CSR_ARGS, base, add != 0);
+}
+
+template <typename P>
+__global__ void __launch_bounds__(kThreads, 4) spmm_csr_panel_kernel_row16(
+    SPMM_CSR_PARAMS, const int32_t* __restrict__ base, int add) {
+  spmm_csr_share<P, 4, true, true>(SPMM_CSR_ARGS, base, add != 0);
 }
 
 // The second launch, a block a share: the first share of each run of
@@ -342,6 +440,47 @@ int launch(const P* rowptrs, int64_t* edges, int search,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The product panel by panel on `stream`: panel k's row pointers at
+// ptrs + k (nrows + 1), its bases at base + k nrows, its share edges after
+// the earlier panels' (each ceil((nrows + nnz_k) / kTile) + 1 of them); the
+// first panel stores every row of C, each later one with entries adds.
+template <int kW>
+int launch_panels(const int32_t* ptrs, const int32_t* base,
+                  const int64_t* edges, int panels, const int64_t* panel_nnz,
+                  const int32_t* colinds, const float* values, const float* b,
+                  int64_t ldb, float* c, int n, int lanes, int64_t nrows,
+                  float* carry, int32_t* carry_row, cudaStream_t stream) {
+  for (int k = 0; k < panels; ++k) {
+    const int64_t nnz = panel_nnz[k];
+    const int64_t n_shares = (nrows + nnz + kTile - 1) / kTile;
+    if (k == 0 || nnz > 0) {
+      const int32_t* rowptrs = ptrs + k * (nrows + 1);
+      const int32_t* bs = base + k * nrows;
+      const int add = k > 0;
+      const dim3 grid{static_cast<unsigned>(n_shares)};
+      if (lanes == 32) {
+        if constexpr (kW == 4)
+          spmm_csr_panel_kernel_row16<int32_t><<<grid, kThreads, 0, stream>>>(
+              SPMM_CSR_ARGS, bs, add);
+        else
+          spmm_csr_panel_kernel<int32_t, kW, true><<<grid, kThreads, 0, stream>>>(
+              SPMM_CSR_ARGS, bs, add);
+      } else {
+        spmm_csr_panel_kernel<int32_t, kW, false><<<grid, kThreads, 0, stream>>>(
+            SPMM_CSR_ARGS, bs, add);
+      }
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      spmm_csr_carries<<<grid, kFixThreads, 0, stream>>>(carry, carry_row, c, n,
+                                                          n_shares);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    edges += n_shares + 1;
+  }
+  return 0;
+}
+
 template <typename P>
 int launch_w(int width, const P* rowptrs, int64_t* edges, int search,
              const int32_t* colinds, const float* values, const float* b,
@@ -358,6 +497,24 @@ int launch_w(int width, const P* rowptrs, int64_t* edges, int search,
                       lanes, nrows, nnz, carry, carry_row, stream);
 }
 
+int launch_panels_w(int width, const int32_t* ptrs, const int32_t* base,
+                    const int64_t* edges, int panels, const int64_t* panel_nnz,
+                    const int32_t* colinds, const float* values, const float* b,
+                    int64_t ldb, float* c, int n, int lanes, int64_t nrows,
+                    float* carry, int32_t* carry_row, cudaStream_t stream) {
+  if (width == 4)
+    return launch_panels<4>(ptrs, base, edges, panels, panel_nnz, colinds,
+                            values, b, ldb, c, n, lanes, nrows, carry,
+                            carry_row, stream);
+  if (width == 2)
+    return launch_panels<2>(ptrs, base, edges, panels, panel_nnz, colinds,
+                            values, b, ldb, c, n, lanes, nrows, carry,
+                            carry_row, stream);
+  return launch_panels<1>(ptrs, base, edges, panels, panel_nnz, colinds,
+                          values, b, ldb, c, n, lanes, nrows, carry, carry_row,
+                          stream);
+}
+
 }  // namespace
 
 // C = A @ B for an nrows-row CSR matrix of nnz entries (rowptrs[0] == 0,
@@ -369,14 +526,23 @@ int launch_w(int width, const P* rowptrs, int64_t* edges, int search,
 // lane loads: with 4, n and ldb are multiples of 4 and B and C lie on 16 B
 // boundaries; with 2, multiples of 2 on 8 B ones.  lanes (4, 8, 16 or 32)
 // walk a row.  carry holds ceil((nrows + nnz) / kTile) rows of n floats and
-// carry_row as many int32; C needs no zeroing.  Launches the kernels on
-// `stream` and returns the CUDA error (0 on success).
+// carry_row as many int32; C needs no zeroing.
+//
+// With panels > 1 the product runs in that many column panels
+// (ops/spmm.py:Panels): rowptrs holds the panels' int32 row pointers
+// (panels x (nrows + 1), ptr64 0), panel_base their int32 bases (panels x
+// nrows), edges each panel's share edges one after another (no search),
+// panel_nnz, a host array, each panel's entries; carry and carry_row hold
+// the largest panel's shares.  panels 0 or 1 is the one launch above.
+// Launches the kernels on `stream` and returns the CUDA error (0 on
+// success).
 extern "C" int csrt_spmm_csr(const void* rowptrs, int ptr64, void* edges,
                              int search, const void* colinds,
                              const void* values, const void* b, int64_t ldb,
                              void* c, int64_t n, int64_t nrows, int64_t nnz,
                              void* carry, void* carry_row, int width, int lanes,
-                             void* stream) {
+                             int panels, const void* panel_base,
+                             const void* panel_nnz, void* stream) {
   if (nrows <= 0 || nnz <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   if (!(lanes == 4 || lanes == 8 || lanes == 16 || lanes == 32) ||
       !(width == 1 || width == 2 || width == 4))
@@ -389,6 +555,14 @@ extern "C" int csrt_spmm_csr(const void* rowptrs, int ptr64, void* edges,
   const auto cy = static_cast<float*>(carry);
   const auto cr = static_cast<int32_t*>(carry_row);
   const auto s = static_cast<cudaStream_t>(stream);
+  if (panels > 1) {
+    if (ptr64 || search || !panel_base || !panel_nnz)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_panels_w(width, static_cast<const int32_t*>(rowptrs),
+                           static_cast<const int32_t*>(panel_base), e, panels,
+                           static_cast<const int64_t*>(panel_nnz), ci, v, bp,
+                           ldb, cp, int(n), lanes, nrows, cy, cr, s);
+  }
   if (ptr64)
     return launch_w(width, static_cast<const int64_t*>(rowptrs), e, search, ci, v,
                     bp, ldb, cp, int(n), lanes, nrows, nnz, cy, cr, s);

@@ -56,7 +56,9 @@ any launch (and from the structure's micro-row count):
   Other f32 SpMM of a matrix whose layout would cost more than
   :func:`_spmm_crossover` bytes a stored entry at B's width runs the
   CSR-form kernel ``ops/spmm.py:spmm_csr`` on the matrix's own tensors
-  (:func:`_spmm_route` says ``"csr"``), one call whatever the size; the
+  (:func:`_spmm_route` says ``"csr"``), one call whatever the size, in
+  column panels where :func:`spmm_panel_count` finds B larger than a slab of
+  the card's L2 and the rows long (:func:`_spmm_panels`); the
   rest runs the micro-block SpMM kernel, once a chunk and panel
   (``ops/spmm.py:spmm_large``) past :func:`_needs_large`'s limit.  No
   f32 SpMM runs the ``torch`` backend;
@@ -362,15 +364,21 @@ def _build_edges(csr, transpose: bool, tile: int) -> torch.Tensor:
     rowptrs = _cached_csr_t(csr)[0] if transpose else csr.rowptrs
     rows, entries = _spmv_op.csr_shares(rowptrs, csr.nnz, tile)
     if recording():
-        # an edge cuts the row it stops in where entries of that row lie
-        # on both sides of it; the edges come in row order
-        at = rows.clamp_max(rowptrs.shape[0] - 2)
-        inside = (rowptrs[at] < entries) & (entries < rowptrs[at + 1])
-        _, cuts = torch.unique_consecutive(at[inside], return_counts=True)
-        count("csr.edges.shares", rows.numel() - 1)
-        count("csr.edges.rows_cut", cuts.numel())
-        count("csr.edges.rows_spanning", int((cuts >= 2).sum()))
+        _count_split(rowptrs, rows, entries)
     return rows
+
+
+def _count_split(rowptrs, rows, entries) -> None:
+    """Count a share split (``csr_shares``' rows and entries at its
+    edges) in ``csr.edges.*``."""
+    # an edge cuts the row it stops in where entries of that row lie on
+    # both sides of it; the edges come in row order
+    at = rows.clamp_max(rowptrs.shape[0] - 2)
+    inside = (rowptrs[at] < entries) & (entries < rowptrs[at + 1])
+    _, cuts = torch.unique_consecutive(at[inside], return_counts=True)
+    count("csr.edges.shares", rows.numel() - 1)
+    count("csr.edges.rows_cut", cuts.numel())
+    count("csr.edges.rows_spanning", int((cuts >= 2).sum()))
 
 
 def _build_spmv_edges(csr, transpose: bool):
@@ -559,7 +567,8 @@ def release_handle(h, drop_cache: bool = False):
                      "_mb_large_cache", "_mb_large_t_cache", "_csr_t_cache",
                      "_mb_stat_cache", "_spmv_edges_cache",
                      "_spmv_edges_t_cache", "_spmm_edges_cache",
-                     "_spmm_edges_t_cache", "_plans"):
+                     "_spmm_edges_t_cache", "_spmm_panels_cache",
+                     "_spmm_panels_t_cache", "_plans"):
             setattr(h.csr, attr, None)
 
 
@@ -604,7 +613,9 @@ def _mult(h, v, transpose: bool):
         a = _spmv_op.CsrForm(*(_cached_csr_t(c, ver) if transpose else _csr_form(c)),
                              edges=_spmv_edges(c, transpose, ver),
                              spmm_edges=(_spmm_edges(c, transpose, ver)
-                                         if batched else None))
+                                         if batched else None),
+                             spmm_panels=((lambda n: _spmm_panels(c, transpose, n, ver))
+                                          if batched else None))
     elif route == "large":
         a = _cached_large(c, transpose, ver)
     else:
@@ -627,7 +638,8 @@ def route_settings() -> tuple:
     under the settings it was made under."""
     return (_CSR_CROSSOVER, _CSR_CROSSOVER_LARGE, _SPMM_CSR_CROSSOVER,
             _DENSIFY_CROSSOVER, _LARGE_WINDOWS, _spgemm_op.max_dense_bytes,
-            _spmm_op.L2_SLAB_BYTES, _spmm_op.BLOCKS_IN_FLIGHT)
+            _spmm_op.L2_SLAB_BYTES, _spmm_op.BLOCKS_IN_FLIGHT,
+            _PANEL_L2_SHARE, _PANEL_MIN_ENTRIES)
 
 
 def _spmv_run(a, v, ncols: int, op: str):
@@ -739,6 +751,99 @@ def _spmm_crossover(n: int) -> float:
     return _at_width(_SPMM_CSR_CROSSOVER, n)
 
 
+#: the CSR-form SpMM in column panels (``ops/spmm.py:Panels``): B's rows
+#: that the blocks in flight gather from must fit this share of the
+#: card's L2 (a panel's columns times B's width times 4 B), so a B larger
+#: than the share runs in as many panels as it takes.  Measured on an
+#: NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 23, PERF.md), at
+#: KDD-Cup'11's R . Q and Rt . P (B 125 and 200 MB, 50 wide): one pass
+#: 15.60 / 17.31 ms; slabs of 8, 12, 16, 20, 25, 30 and 40 MiB 14.68 /
+#: 14.18, 13.17 / 12.76, 12.42 / 11.93, 11.63 / 11.56, 11.40 / 11.25,
+#: 11.46 / 11.24 and 11.77 / 11.52 ms: fewer, wider panels cost less
+#: until the slab passes about half of L2, which 25 MiB is
+_PANEL_L2_SHARE = 0.5
+#: ... where each row keeps at least this many entries a panel on average
+#: (``nnz / nrows / K``): every panel walks every row and reads and writes
+#: C's rows again, which pays only where rows are long.  Measured as
+#: above over 44 (matrix, slab) points of 0.18-88 entries a row a panel
+#: (KDD-Cup'11's R thinned to 1/2 .. 1/32, phase 22's 131,072-row sweep):
+#: one-pass time / panelled time 0.05-0.94 up to 9.14, 0.973 at 10.94,
+#: 0.999 at 13.13, then 1.053 at 16.41 and 1.06-1.54 from there on
+_PANEL_MIN_ENTRIES = 16.0
+#: L2 bytes by CUDA device index, read once
+_l2_by_device: dict = {}
+
+
+def _l2_bytes(dev: torch.device) -> int:
+    """The L2 cache of the card ``dev``; 0 off a card (one pass)."""
+    if dev.type != "cuda":
+        return 0
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _l2_by_device:
+        _l2_by_device[index] = torch.cuda.get_device_properties(index).L2_cache_size
+    return _l2_by_device[index]
+
+
+def panels_for_slab(ncols: int, n: int, slab_bytes: int) -> int:
+    """The fewest column panels of ``ncols`` columns that keep a panel's
+    rows of a B ``n`` wide (``ncols * n * 4 / K`` bytes) within
+    ``slab_bytes``, a column a panel at most."""
+    return min(-(-(ncols * n * 4) // max(slab_bytes, 1)), ncols)
+
+
+def spmm_panel_count(nrows: int, ncols: int, nnz: int, n: int, l2_bytes: int) -> int:
+    """The column panels the CSR-form SpMM of an ``nrows x ncols`` matrix
+    of ``nnz`` entries runs in, with B ``n`` wide, on a card of
+    ``l2_bytes`` of L2: :func:`panels_for_slab` of :data:`_PANEL_L2_SHARE`
+    of L2, or 1 (one pass) where that is 1, where there is no L2 (off a
+    card), where the rows would keep fewer than :data:`_PANEL_MIN_ENTRIES`
+    entries a panel on average, or where the panels' int32 metadata
+    cannot index ``nnz`` entries."""
+    if l2_bytes <= 0:
+        return 1
+    k = panels_for_slab(ncols, n, int(l2_bytes * _PANEL_L2_SHARE))
+    if k <= 1 or nnz >= 1 << 31 or nnz < _PANEL_MIN_ENTRIES * nrows * k:
+        return 1
+    return k
+
+
+def _spmm_panels(csr, transpose: bool, n: int, versions=None):
+    """The :class:`ops/spmm.py:Panels` that the CSR-form SpMM of ``csr``
+    (or of its transpose) with B ``n`` wide runs in, or None for one pass:
+    :func:`spmm_panel_count`'s count on the matrix's card, where its rows hold
+    their columns in order (``ops/spmm.py:rows_in_order``, checked once on
+    the card).  Built at the first product that needs them and cached on
+    the matrix by count while :func:`_fresh`, as the share edges are (the
+    ``csr.build.spmm_panels`` span, ``form_builds.spmm_panels``, a
+    ``layout-build-panels`` event; while tracing records, each panel's
+    share split counts in ``csr.edges.*`` as :func:`_build_edges`' do)."""
+    nrows, ncols = (csr.ncols, csr.nrows) if transpose else (csr.nrows, csr.ncols)
+    k = spmm_panel_count(nrows, ncols, csr.nnz, n, _l2_bytes(csr.device))
+    if k == 1:
+        return None
+    attr = "_spmm_panels_t_cache" if transpose else "_spmm_panels_cache"
+    cached = getattr(csr, attr, None)
+    if not _fresh(cached, csr, versions):
+        cached = _entry(csr, {})
+        setattr(csr, attr, cached)
+    forms = cached[3]  # {"in_order": bool, count: Panels or None}
+    if k not in forms:
+        rp, ci, _ = _cached_csr_t(csr) if transpose else _csr_form(csr)
+        with span("csr.build.spmm_panels"):
+            if "in_order" not in forms:
+                forms["in_order"] = _spmm_op.rows_in_order(rp, ci)
+            forms[k] = (_spmm_op.split_panels(rp, ci, _spmm_op.panel_bounds(ncols, k))
+                        if forms["in_order"] else None)
+        if recording() and forms[k]:  # each panel's share split
+            for i, nnz in enumerate(forms[k].nnz):
+                ptrs = forms[k].ptrs[i]
+                _count_split(ptrs, *_spmv_op.csr_shares(ptrs, nnz, _spmm_op.CSR_TILE))
+        count("form_builds.spmm_panels")
+        trace("layout-build-panels", panels=k if forms[k] else 1, nnz=csr.nnz,
+              transpose=transpose, n=n, bytes=forms[k].nbytes if forms[k] else 0)
+    return forms[k]
+
+
 def _spmm_route(csr, n: int, versions=None) -> str:
     """The f32 SpMM route of ``csr`` with B ``n`` wide, past the dense
     route: ``"csr"`` where the micro-block layout would cost more than
@@ -769,32 +874,35 @@ def _sparse_times_dense(h, b, op: str, plan: bool = False):
     trace(op, **fields)
     if route == "large":
         return _spmm_op.spmm_large(_cached_large(c, False, ver), b)
+    panels = None
     if route == "csr":
-        form, edges = _csr_form(c), _spmm_edges(c, False, ver)
-        out = _spmm_op.spmm_csr(*form, b, edges=edges)
+        form, panels = _csr_form(c), _spmm_panels(c, False, n, ver)
+        edges = None if panels else _spmm_edges(c, False, ver)
+        out = _spmm_op.spmm_csr(*form, b, edges=edges, panels=panels)
         # a plan where the launch reads cached forms only
         plan = plan and form[1] is c.colinds and form[2] is c.values
     else:
         form, edges = _cached_layout(c, ver), None
         out = _spmm_op.spmm(form, b)
     if plan and n and torch._C._functorch.maybe_current_level() is None:
-        h.plan = _plan.make(c, b, route_settings(), (form, edges),
-                            _spmm_run(form, edges, b), _events(c, (op, fields)))
+        h.plan = _plan.make(c, b, route_settings(), (form, edges, panels),
+                            _spmm_run(form, edges, b, panels),
+                            _events(c, (op, fields)))
     return out
 
 
-def _spmm_run(form, edges, b):
+def _spmm_run(form, edges, b, panels=None):
     """A plan's launch of SpMM on ``form``, a layout or the CSR tensors
-    (with the rows at their SpMM share edges), for a B like ``b``: on the
-    card the wrapper's launch, its checks done; on the CPU the wrapper as
-    the general path calls it."""
+    (with the rows at their SpMM share edges, or their column panels),
+    for a B like ``b``: on the card the wrapper's launch, its checks done;
+    on the CPU the wrapper as the general path calls it."""
     csr_form = isinstance(form, tuple)
     if b.device.type != "cuda":
         if csr_form:
-            return lambda x: _spmm_op.spmm_csr(*form, x, edges=edges)
+            return lambda x: _spmm_op.spmm_csr(*form, x, edges=edges, panels=panels)
         return lambda x: _spmm_op.spmm(form, x)
     if csr_form:
-        return _spmm_op.spmm_csr_launch(*form, edges, b)
+        return _spmm_op.spmm_csr_launch(*form, edges, b, panels)
     return _spmm_op.spmm_launch(form, b)
 
 

@@ -52,9 +52,10 @@ ENTRIES = {
     "spmv_csr": [_vp, _i32, _vp, _i32, _vp, _vp, _vp, _vp, _i64, _i64, _i32,
                  _vp, _vp, _i64, _vp],
     # rowptrs, ptr64, edges, search, colinds, values (or NULL), b, ldb, c, n,
-    # nrows, nnz, carry, carry_row, width, lanes, stream
+    # nrows, nnz, carry, carry_row, width, lanes, panels, panel_base (or
+    # NULL), panel_nnz (a host array, or NULL), stream
     "spmm_csr": [_vp, _i32, _vp, _i32, _vp, _vp, _vp, _i64, _vp, _i64, _i64,
-                 _i64, _vp, _vp, _i32, _i32, _vp],
+                 _i64, _vp, _vp, _i32, _i32, _i32, _vp, _vp, _vp],
 }
 
 #: loaded libraries by kernel name
@@ -175,19 +176,19 @@ def spmv_csr(rowptrs, edges, search: bool, colinds, values, x, y,
 
 def spmm_csr(rowptrs, edges, search: bool, colinds, values, b, c, carry,
              carry_row, width: int, lanes: int) -> None:
-    """Launch the CSR-form SpMM kernel, ``C = A @ B`` read from the
-    matrix's own tensors (``values`` None: every value 1), and its carry
-    pass, on the current stream.  ``edges`` holds the rows at the share
-    edges, or with ``search`` room for them, which a first launch fills;
-    ``carry`` and ``carry_row`` are its scratch, a row a share; a lane
-    loads ``width`` floats of B at a time and ``lanes`` lanes walk a row.
-    The caller has checked the tensors."""
+    """Launch the CSR-form SpMM kernel in one pass (no column panels),
+    ``C = A @ B`` read from the matrix's own tensors (``values`` None:
+    every value 1), and its carry pass, on the current stream.  ``edges``
+    holds the rows at the share edges, or with ``search`` room for them,
+    which a first launch fills; ``carry`` and ``carry_row`` are its
+    scratch, a row a share; a lane loads ``width`` floats of B at a time
+    and ``lanes`` lanes walk a row.  The caller has checked the tensors."""
     _launch("spmm_csr", rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64),
             edges.data_ptr(), int(search), colinds.data_ptr(),
             None if values is None else values.data_ptr(), b.data_ptr(),
             b.stride(0), c.data_ptr(), c.shape[1], rowptrs.shape[0] - 1,
             colinds.shape[0], carry.data_ptr(), carry_row.data_ptr(), width,
-            lanes, torch.cuda.current_stream(c.device).cuda_stream)
+            lanes, 0, None, None, torch.cuda.current_stream(c.device).cuda_stream)
 
 
 def spmv_bucket_occupancy() -> tuple:

@@ -26,16 +26,21 @@ and B dense ``(A.ncols, n)``, row-major.
   micro-block layout is mostly padding or that do not pack.
   :func:`spmm_csr_reference` is its plain PyTorch version, split as the
   kernel splits (``ops/spmv.py:csr_parts``), and :data:`csr_launches` its
-  launch count.
+  launch count.  Where ``kernels/cuda.py`` finds B larger than a slab of
+  L2 and rows long, it runs in column panels (:class:`Panels`, built by
+  :func:`split_panels` on a matrix whose rows hold their columns in order,
+  :func:`rows_in_order`); :func:`spmm_csr_panels_reference` is that
+  product's plain version.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from csr_tpu_torch.tracing import spanned
+from csr_tpu_torch.tracing import count, spanned
 
 from .microblock import (ACC_GROUP, LANE, SLOT_CAP, MicroBlockLayout,
                          check_on_card)
@@ -51,6 +56,11 @@ csr_launches = 0
 CSR_TILE = 1024
 #: lanes that may walk a row of the CSR-form kernel, fewest first
 CSR_LANES = (4, 8, 16, 32)
+#: rows a chunk of :func:`split_panels`' search takes, and entries a chunk
+#: of :func:`rows_in_order`'s check: their temporaries stay near 100 MB
+#: whatever the matrix
+_SPLIT_ROWS = 1 << 20
+_ORDER_CHUNK = 1 << 22
 
 #: elements of B's rows gathered at once by :func:`scatter_rows` (256 MB
 #: of f32), so the plain version's temporaries stay near 1 GB at any size
@@ -351,6 +361,134 @@ def spmm_csr_reference(rowptrs: torch.Tensor, colinds: torch.Tensor,
     return c.index_add_(0, rows, sums)
 
 
+@dataclass(frozen=True)
+class Panels:
+    """A CSR matrix's columns cut into contiguous panels, for
+    :func:`spmm_csr` to run panel by panel.  Panel ``k`` holds the entries
+    of columns ``bounds[k] .. bounds[k + 1] - 1``: in a matrix whose rows
+    hold their columns in order, a run of each row.  ``ptrs[k]`` are the
+    panel's own row pointers (its runs' lengths summed) and row ``r``'s
+    run starts at entry ``base[k, r] + ptrs[k, r]`` of the matrix; both
+    int32, 8 B a row a panel.  ``nnz[k]`` is the panel's entry count and
+    ``edges`` holds each panel's share edges (``ops/spmv.py:csr_shares``
+    at :data:`CSR_TILE`), one panel after another."""
+
+    bounds: tuple
+    ptrs: torch.Tensor  # int32 (K, nrows + 1)
+    base: torch.Tensor  # int32 (K, nrows)
+    nnz: tuple
+    edges: torch.Tensor  # int64, sum of (shares_k + 1)
+
+    @property
+    def count(self) -> int:
+        return len(self.nnz)
+
+    @property
+    def shares(self) -> tuple:
+        """Each panel's shares of :data:`CSR_TILE` merge items."""
+        nrows = self.ptrs.shape[1] - 1
+        return tuple(n_shares(nrows, k, CSR_TILE) for k in self.nnz)
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.ptrs, self.base, self.edges))
+
+
+def panel_bounds(ncols: int, k: int) -> tuple:
+    """The ``k + 1`` column edges that cut ``ncols`` columns into ``k``
+    panels whose widths differ by one at most."""
+    return tuple(i * ncols // k for i in range(k + 1))
+
+
+def rows_in_order(rowptrs: torch.Tensor, colinds: torch.Tensor) -> bool:
+    """Whether every row holds its columns in increasing order (repeats
+    allowed): a column index below the one before it only where a row
+    starts.  On the tensors' device by chunks of :data:`_ORDER_CHUNK`
+    entries; one read to the host."""
+    nnz = colinds.shape[0]
+    dev = colinds.device
+    rp = rowptrs.to(torch.int64)
+    nrows = rp.shape[0] - 1
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    for k0 in range(1, nnz, _ORDER_CHUNK):
+        k1 = min(k0 + _ORDER_CHUNK, nnz)
+        at = torch.arange(k0, k1, device=dev)
+        starts = rp[torch.searchsorted(rp, at).clamp_max(nrows)] == at
+        bad |= ((colinds[k0:k1] < colinds[k0 - 1 : k1 - 1]) & ~starts).any()
+    count("host_reads")
+    return not bool(bad)
+
+
+def split_panels(rowptrs: torch.Tensor, colinds: torch.Tensor,
+                 bounds: tuple) -> Panels:
+    """The :class:`Panels` of a matrix whose rows hold their columns in
+    order (:func:`rows_in_order`), cut at column edges ``bounds``: where
+    each row's run of each panel starts, by a binary search of the row's
+    columns at each inner edge, on the tensors' device by chunks of
+    :data:`_SPLIT_ROWS` rows (no temporary the size of the entries).
+    Two reads to the host: the longest row and the panels' entry counts."""
+    from .spmv import csr_shares
+
+    nnz = colinds.shape[0]
+    if nnz >= 1 << 31:
+        raise ValueError(f"{nnz} entries: a panel's int32 metadata holds < 2^31")
+    dev = colinds.device
+    rp = rowptrs.to(torch.int64)
+    nrows = rp.shape[0] - 1
+    k = len(bounds) - 1
+    starts = torch.empty(k + 1, nrows, dtype=torch.int64, device=dev)
+    starts[0], starts[k] = rp[:-1], rp[1:]
+    inner = torch.tensor(bounds[1:-1], dtype=colinds.dtype, device=dev)[:, None]
+    steps = int(torch.diff(rp).max()).bit_length() if nrows and k > 1 else 0
+    count("host_reads")
+    for r0 in range(0, nrows if k > 1 else 0, _SPLIT_ROWS):
+        r1 = min(r0 + _SPLIT_ROWS, nrows)
+        lo = rp[r0:r1].expand(k - 1, -1).clone()
+        hi = rp[r0 + 1 : r1 + 1].expand(k - 1, -1).clone()
+        for _ in range(steps):  # the first entry of each row at or past the edge
+            mid = (lo + hi) >> 1
+            open_ = lo < hi
+            below = colinds[mid.clamp_max(max(nnz - 1, 0))] < inner
+            lo = torch.where(open_ & below, mid + 1, lo)
+            hi = torch.where(open_ & ~below, mid, hi)
+        starts[1:k, r0:r1] = lo
+    ptrs = torch.zeros(k, nrows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(torch.diff(starts, dim=0), dim=1, out=ptrs[:, 1:])
+    base = (starts[:-1] - ptrs[:, :-1]).to(torch.int32)
+    per_panel = tuple(ptrs[:, -1].tolist())
+    count("host_reads")
+    ptrs = ptrs.to(torch.int32)
+    edges = torch.cat([csr_shares(ptrs[i], per_panel[i], CSR_TILE)[0]
+                       for i in range(k)])
+    return Panels(tuple(bounds), ptrs, base, per_panel, edges)
+
+
+def _panel_entries(panels: Panels, k: int) -> torch.Tensor:
+    """The matrix's entries that panel ``k`` holds, in its order: int64."""
+    lengths = torch.diff(panels.ptrs[k].to(torch.int64))
+    first = torch.repeat_interleave(panels.base[k].to(torch.int64), lengths,
+                                    output_size=panels.nnz[k])
+    return first + torch.arange(panels.nnz[k], device=first.device)
+
+
+def spmm_csr_panels_reference(colinds: torch.Tensor,
+                              values: torch.Tensor | None, b: torch.Tensor,
+                              panels: Panels, tile: int = CSR_TILE) -> torch.Tensor:
+    """``A @ B`` in plain PyTorch panel by panel, as the CSR-form kernel
+    runs it in :class:`Panels`: each panel's runs as a CSR of their own,
+    multiplied by :func:`spmm_csr_reference` (split as the kernel splits
+    each panel), and added into C in panel order.  Returns f32
+    ``(nrows, n)`` on the tensors' device."""
+    c = None
+    for k in range(panels.count):
+        at = _panel_entries(panels, k)
+        part = spmm_csr_reference(panels.ptrs[k], colinds[at],
+                                  None if values is None else values[at], b, tile)
+        c = part if c is None else c.add_(part)
+    return c
+
+
 def csr_plan(n: int, ldb: int, align: int) -> tuple:
     """How the CSR-form kernel walks C ``n`` columns wide from a B whose
     rows lie ``ldb`` floats apart on an ``align``-byte boundary (C is
@@ -368,7 +506,8 @@ def csr_plan(n: int, ldb: int, align: int) -> tuple:
 @spanned("csr.op.spmm_csr")
 def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
              values: torch.Tensor | None, b: torch.Tensor,
-             edges: torch.Tensor | None = None) -> torch.Tensor:
+             edges: torch.Tensor | None = None,
+             panels: Panels | None = None) -> torch.Tensor:
     """``A @ B`` for a matrix in CSR form, read from its own tensors:
     ``rowptrs`` int32 or int64 (``rowptrs[0] == 0``, the last the entry
     count), ``colinds`` int32, ``values`` f32 or None (every value 1),
@@ -382,11 +521,21 @@ def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
     (:func:`csr_plan`'s lanes a row and load width; B read as it is, with
     no padded copy) and one that adds the carries of rows cut by a share's
     edge, counted once in :data:`csr_launches`; a build or launch failure
-    raises.  On CPU tensors :func:`spmm_csr_reference` runs."""
+    raises.  On CPU tensors :func:`spmm_csr_reference` runs.
+
+    With ``panels`` (:func:`split_panels` of this matrix, two panels or
+    more) the product runs panel by panel (``edges`` unused): the kernel's
+    two launches a panel, the first storing C and the rest adding into it
+    (counted once, and ``csr.spmm.panels`` counts the panels); on CPU
+    tensors :func:`spmm_csr_panels_reference`."""
     check_csr_operands(rowptrs, colinds, values, b, x_dim=2, edges=edges,
                        tile=CSR_TILE)
+    _check_panels(panels, rowptrs, colinds)
     dev = colinds.device
     if dev.type == "cpu":
+        if panels is not None:
+            count("csr.spmm.panels", panels.count)
+            return spmm_csr_panels_reference(colinds, values, b, panels)
         return spmm_csr_reference(rowptrs, colinds, values, b)
     if dev.type != "cuda":
         raise ValueError(f"spmm_csr runs on CPU or CUDA tensors, not {dev}")
@@ -399,7 +548,25 @@ def spmm_csr(rowptrs: torch.Tensor, colinds: torch.Tensor,
         raise ValueError("rowptrs, colinds, values and B must be 4 B aligned")
     if nnz == 0 or n == 0:
         return torch.zeros(nrows, n, dtype=torch.float32, device=dev)
-    return spmm_csr_launch(rowptrs, colinds, values, edges, b)(b)
+    return spmm_csr_launch(rowptrs, colinds, values, edges, b, panels)(b)
+
+
+def _check_panels(panels, rowptrs, colinds) -> None:
+    """Raise ValueError unless ``panels`` is None or two panels or more of
+    a matrix of these row pointers and column indices."""
+    if panels is None:
+        return
+    shape = (panels.count, rowptrs.shape[0])
+    if (panels.count < 2 or tuple(panels.ptrs.shape) != shape
+            or tuple(panels.base.shape) != (shape[0], shape[1] - 1)
+            or panels.ptrs.dtype != torch.int32 or panels.base.dtype != torch.int32
+            or sum(panels.nnz) != colinds.shape[0]
+            or panels.edges.shape[0] != sum(panels.shares) + panels.count
+            or any(t.device != colinds.device
+                   for t in (panels.ptrs, panels.base, panels.edges))):
+        raise ValueError(f"panels: expected 2 or more of a matrix of "
+                         f"{shape[1] - 1} rows and {colinds.shape[0]} entries on "
+                         f"{colinds.device}")
 
 
 def _as_read_csr(b: torch.Tensor, n: int) -> torch.Tensor:
@@ -411,13 +578,14 @@ def _as_read_csr(b: torch.Tensor, n: int) -> torch.Tensor:
 
 def spmm_csr_launch(rowptrs: torch.Tensor, colinds: torch.Tensor,
                     values: torch.Tensor | None, edges: torch.Tensor | None,
-                    like: torch.Tensor):
+                    like: torch.Tensor, panels: Panels | None = None):
     """:func:`spmm_csr`'s launch on the card for a B like ``like`` (its
     dtype, shape, strides and alignment; checked by :func:`spmm_csr`),
-    the matrix's side and the :func:`csr_plan` bound once: a function of
-    B that takes it as the kernel reads it, allocates C and the scratch,
-    takes the current stream and launches.  A product plan
-    (``csr_tpu_torch/_plan.py``) keeps it for such a B."""
+    the matrix's side (with ``panels``, its :class:`Panels`) and the
+    :func:`csr_plan` bound once: a function of B that takes it as the
+    kernel reads it, allocates C and the scratch, takes the current
+    stream and launches.  A product plan (``csr_tpu_torch/_plan.py``)
+    keeps it for such a B."""
     from . import _cuda
 
     dev = colinds.device
@@ -426,13 +594,20 @@ def spmm_csr_launch(rowptrs: torch.Tensor, colinds: torch.Tensor,
     read = _as_read_csr(like, n)
     convert = read is not like
     width, lanes = csr_plan(n, read.stride(0), read.data_ptr() & -read.data_ptr())
-    shares = n_shares(nrows, nnz, CSR_TILE)
-    search = edges is None
     kernel = _cuda.entry("spmm_csr")
-    head = (rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64))
+    if panels is None:
+        shares = n_shares(nrows, nnz, CSR_TILE)
+        search = edges is None
+        head = (rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64))
+        edges_ptr = None if search else edges.data_ptr()
+        per_panel, split = None, (0, None, None)
+    else:  # the panels' row pointers, edges and bases; their entry counts
+        shares, search = max(panels.shares), False
+        head, edges_ptr = (panels.ptrs.data_ptr(), 0), panels.edges.data_ptr()
+        per_panel = np.asarray(panels.nnz, dtype=np.int64)  # the host reads it
+        split = (panels.count, panels.base.data_ptr(), per_panel.ctypes.data)
     mat = (int(search), colinds.data_ptr(),
            None if values is None else values.data_ptr())
-    edges_ptr = None if search else edges.data_ptr()
 
     # one scratch allocation: the shares' carries (n f32 a share), their
     # rows (int32) and, with search, room for the edges (int64), which the
@@ -450,8 +625,10 @@ def spmm_csr_launch(rowptrs: torch.Tensor, colinds: torch.Tensor,
         s = scratch.data_ptr()
         _cuda.call_on(index, kernel, *head, s + edges_at if search else edges_ptr,
                       *mat, b.data_ptr(), b.stride(0), c.data_ptr(), n, nrows, nnz,
-                      s, s + rows_at, width, lanes, _cuda.stream(index))
+                      s, s + rows_at, width, lanes, *split, _cuda.stream(index))
         csr_launches += 1
+        if per_panel is not None:  # (the launch holds the array it hands over)
+            count("csr.spmm.panels", per_panel.shape[0])
         return c
 
     return launch

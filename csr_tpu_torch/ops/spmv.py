@@ -526,7 +526,9 @@ def spmv_csr_launch(rowptrs: torch.Tensor, colinds: torch.Tensor,
 class CsrForm:
     """A matrix's CSR tensors as :func:`spmv_csr` reads them, and the rows
     at its share edges for :func:`spmv_csr` and, under ``torch.func.vmap``,
-    for ``ops/spmm.py:spmm_csr`` (None: the kernel finds them), for
+    for ``ops/spmm.py:spmm_csr`` (None: the kernel finds them), with the
+    column panels that SpMM runs in for a batch of each width
+    (``spmm_panels(n)``: ``ops/spmm.py:Panels`` or None), for
     :func:`product` (a plain class, not a pytree node: ``torch.func``
     passes it through as one argument)."""
 
@@ -535,6 +537,7 @@ class CsrForm:
     values: torch.Tensor | None
     edges: torch.Tensor | None = None
     spmm_edges: torch.Tensor | None = None
+    spmm_panels: object = None  # n -> Panels | None
 
 
 class _Product(torch.autograd.Function):
@@ -571,8 +574,10 @@ class _Product(torch.autograd.Function):
         if isinstance(a, CsrForm):
             trace(op, route="csr", shape=(a.rowptrs.shape[0] - 1, ncols),
                   n=b.shape[1])
+            panels = a.spmm_panels(b.shape[1]) if a.spmm_panels else None
             return spmm_op.spmm_csr(a.rowptrs, a.colinds, a.values, b,
-                                    edges=a.spmm_edges), 1
+                                    edges=None if panels else a.spmm_edges,
+                                    panels=panels), 1
         if isinstance(a, MicroBlockLayout):
             trace(op, route="kernel", shape=(a.nrows, a.ncols), n=b.shape[1])
             return spmm_op.spmm(a, b), 1

@@ -45,8 +45,10 @@ Spans, from a public call down:
   the matrix: the micro-block layouts (``layout``, ``layout_t``, and
   ``large``, ``large_t`` in chunks and panels), the transpose's CSR
   tensors (``csr_t``), the CSR-form kernels' share edges
-  (``spmv_edges``, ``spmv_edges_t``, ``spmm_edges``, ``spmm_edges_t``)
-  and the route statistic (``stat``);
+  (``spmv_edges``, ``spmv_edges_t``, ``spmm_edges``, ``spmm_edges_t``),
+  the CSR-form SpMM's column panels (``spmm_panels``: the rows' order
+  checked and the panels' metadata built) and the route statistic
+  (``stat``);
 * ``csr.esc.plan``, ``csr.esc.expand``, ``csr.esc.compress`` and
   ``csr.structure.transpose``: ESC's host plan and its two halves, and
   the transpose of B that ``A @ B^T`` makes;
@@ -62,8 +64,11 @@ call's plan look-up and each plan kept (:mod:`csr_tpu_torch._plan`);
 ``csr.edges.rows_spanning``, the split of each set of CSR-form share
 edges built (its shares, the rows a share edge cuts, the rows over
 three shares or more: ``kernels/cuda.py:_build_edges``), set-up figures
-that a cached split never counts again; and from the events, ``route.<event>.<route>``, ``event.layout-build*``,
-``esc.terms`` and ``esc.chunks``.
+that a cached split never counts again; ``csr.spmm.panels``, the column
+panels each CSR-form SpMM ran in, counted only where it ran in two or
+more (``ops/spmm.py:spmm_csr``); and from the events,
+``route.<event>.<route>``, ``event.layout-build*`` (the panels' build is
+``event.layout-build-panels``), ``esc.terms`` and ``esc.chunks``.
 """
 
 from __future__ import annotations

@@ -948,3 +948,144 @@ def test_plan_hit_is_the_general_path_on_card(route, cuda_device):
     assert len(ptrs) == 4
     for h in hits:
         assert torch.equal(h, general)
+
+
+def _panel_matrix(case):
+    """Rows in column order: ``long row``, 600 x 9000 with a full row (a
+    run of over a share in every panel), 40 empty rows and 30 rows over
+    the first 300 columns; ``half empty``, 500 x 4000 whose columns all
+    lie in the first half (the last panels hold no entry)."""
+    rng = np.random.default_rng(140)
+    if case == "long row":
+        a = sps.random(600, 9000, 0.004, format="lil", random_state=rng, dtype=np.float32)
+        a[100:140, :] = 0
+        a[17, :] = rng.standard_normal(9000).astype(np.float32)
+        a[400:430, :300] = rng.standard_normal((30, 300)).astype(np.float32)
+    else:
+        a = sps.random(500, 4000, 0.0, format="lil", dtype=np.float32)
+        a[:, :2000] = sps.random(500, 2000, 0.01, format="lil", random_state=rng,
+                                 dtype=np.float32)
+    a = a.tocsr()
+    a.sort_indices()
+    return a
+
+
+def _force_panels(monkeypatch, ncols, n, k, device):
+    """Set the rule's slab so that a B of ``ncols x n`` f32 takes ``k``
+    panels on this card, whatever the rows' length."""
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    l2 = cuda_k._l2_bytes(device)
+    monkeypatch.setattr(cuda_k, "_PANEL_L2_SHARE", (ncols * n * 4 // k + 1.5) / l2)
+    monkeypatch.setattr(cuda_k, "_PANEL_MIN_ENTRIES", 0.0)
+
+
+def _error_scale(a, b):
+    """|A| |B| in f64: the scale of an element's rounding error."""
+    return abs(a).astype(np.float64) @ np.abs(b.astype(np.float64))
+
+
+@pytest.mark.parametrize("k", [2, 3, 5, 7])
+@pytest.mark.parametrize("n,ptr_dtype,structure_only,b_pad", [
+    (50, torch.int32, False, 0), (3, torch.int64, True, 0),
+    (256, torch.int32, False, 4), (50, torch.int64, False, 6)])
+@pytest.mark.parametrize("case", ["long row", "half empty"])
+def test_spmm_csr_panels_match_reference_on_card(case, n, ptr_dtype, structure_only,
+                                                 b_pad, k, cuda_device, monkeypatch):
+    """``mult_dense`` in ``k`` column panels (the slab shrunk) against
+    ``spmm_csr_reference`` and the panels' plain version to 1e-6 of |A||B|,
+    and scipy: empty rows and empty panels, a row across many shares,
+    int32 and int64 row pointers, structure-only, n = 3, 50 and 256, a B
+    whose rows lie ``n + b_pad`` floats apart; two runs bitwise equal,
+    ``k`` panels counted a call."""
+    from csr_tpu_torch import tracing
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, 0.0),))
+    a = _panel_matrix(case)
+    if structure_only:
+        a = sps.csr_matrix((np.ones(a.nnz, np.float32), a.indices, a.indptr),
+                           shape=a.shape)
+    _force_panels(monkeypatch, a.shape[1], n, k, cuda_device)
+    rp, ci, v = _csr_views(a, (0, 0), ptr_dtype, cuda_device, structure_only)
+    c = CSR(a.shape[0], a.shape[1], a.nnz, rp, ci, v, _cast=False)
+    b = np.random.default_rng(141).uniform(-1, 1, (a.shape[1], n)).astype(np.float32)
+    bd = torch.zeros(a.shape[1], n + b_pad, device=cuda_device)[:, :n]
+    bd.copy_(torch.from_numpy(b))
+    rec = tracing.enable()
+    try:
+        with use_kernel("cuda"):
+            d = c.mult_dense(bd)
+            again = c.mult_dense(bd)
+        torch.cuda.synchronize()
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    panels = cuda_k._spmm_panels(c, False, n)
+    assert panels.count == k and counters["csr.spmm.panels"] == 2 * k
+    assert torch.equal(d, again)
+    scale = _error_scale(a, b)
+    for ref in (spmm.spmm_csr_reference(rp, ci, v, bd),
+                spmm.spmm_csr_panels_reference(ci, v, bd, panels)):
+        gap = np.abs(d.cpu().numpy().astype(np.float64) - ref.cpu().numpy())
+        assert np.all(gap <= 1e-6 * scale), float((gap / np.maximum(scale, 1e-30)).max())
+    assert_product_close(d.cpu().numpy(), a.astype(np.float64) @ b)
+
+
+def test_spmm_csr_panels_rows_out_of_order_on_card(cuda_device, monkeypatch):
+    """A matrix with a row out of column order keeps the one pass on the
+    card whatever the slab: no panel counted, one launch, scipy's result."""
+    from csr_tpu_torch import tracing
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, 0.0),))
+    a = _panel_matrix("long row")
+    k0 = int(a.indptr[17])
+    a.indices[k0 : k0 + 2] = a.indices[k0 : k0 + 2][::-1].copy()
+    a.data[k0 : k0 + 2] = a.data[k0 : k0 + 2][::-1].copy()
+    _force_panels(monkeypatch, a.shape[1], 50, 4, cuda_device)
+    c = CSR.from_scipy(a, device=cuda_device)
+    b = np.random.default_rng(142).uniform(-1, 1, (a.shape[1], 50)).astype(np.float32)
+    before = spmm.csr_launches
+    rec = tracing.enable()
+    try:
+        with use_kernel("cuda"):
+            d = c.mult_dense(torch.from_numpy(b).to(cuda_device))
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    assert cuda_k._spmm_panels(c, False, 50) is None
+    assert "csr.spmm.panels" not in counters and spmm.csr_launches == before + 1
+    assert_product_close(d.cpu().numpy(), a.astype(np.float64) @ b)
+
+
+def test_spmm_csr_panels_plan_hit_on_card(cuda_device, monkeypatch):
+    """A product plan's hit runs the panelled launch: bitwise the general
+    path's result, in a fresh tensor each call, ``k`` panels counted a
+    hit, and the one-pass product within 1e-6 of |A||B|."""
+    from csr_tpu_torch import tracing
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, 0.0),))
+    a = _panel_matrix("long row")
+    _force_panels(monkeypatch, a.shape[1], 50, 6, cuda_device)
+    c = CSR.from_scipy(a, device=cuda_device)
+    b = np.random.default_rng(143).uniform(-1, 1, (a.shape[1], 50)).astype(np.float32)
+    bd = torch.from_numpy(b).to(cuda_device)
+    rec = tracing.enable()
+    try:
+        with use_kernel("cuda"):
+            general = c.mult_dense(bd)
+            hits = [c.mult_dense(bd) for _ in range(3)]
+        torch.cuda.synchronize()
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    assert counters["plan.build"] == 1 and counters["plan.hit"] == 3
+    assert counters["csr.spmm.panels"] == 4 * 6
+    assert len({general.data_ptr()} | {h.data_ptr() for h in hits}) == 4
+    for h in hits:
+        assert torch.equal(h, general)
+    one = spmm.spmm_csr(c.rowptrs, c.colinds, c.values, bd)
+    gap = np.abs(general.cpu().numpy().astype(np.float64) - one.cpu().numpy())
+    assert np.all(gap <= 1e-6 * _error_scale(a, b))

@@ -571,3 +571,278 @@ def test_statistic_splits_a_heavy_window(large, monkeypatch):
     period = 384 if large else 900
     edges = cuda_k._stat_edges(torch.from_numpy(a.indptr.astype(np.int32)), period)
     assert {256, 384, 640} <= set(edges) if large else {256, 512} <= set(edges)
+
+
+# --- column panels: a B past a slab of L2, rows in column order ---
+
+
+def _panel_case(case):
+    """Rows in column order (repeats kept): ``long row``, 600 x 9000 with
+    one full row (over eight shares of merge items, several in every
+    panel), 40 empty rows and a block of 30 rows over the first 300
+    columns; ``half empty``, 500 x 4000 with every column in the first
+    half (the last panels hold no entry)."""
+    rng = np.random.default_rng(130)
+    if case == "long row":
+        lengths = rng.integers(0, 60, 600)
+        lengths[100:140] = 0
+        a = power_law(600, 9000, lengths, 131).tolil()
+        a[17, :] = rng.standard_normal(9000).astype(np.float32)
+        a[400:430, :300] = rng.standard_normal((30, 300)).astype(np.float32)
+        a = a.tocsr()
+    else:
+        a = power_law(500, 2000, rng.integers(0, 40, 500), 132)
+        a = sps.csr_matrix((a.data, a.indices, a.indptr), shape=(500, 4000))
+    a.sort_indices()
+    return a
+
+
+#: the L2 the CPU tests give the rule (an H100's); off a card it sees none
+_L2 = 50 << 20
+
+
+def _force_panels(monkeypatch, ncols, n, k, l2=_L2):
+    """Give the rule ``l2`` bytes of L2 on the CPU and set its slab so
+    that a B of ``ncols x n`` f32 takes ``k`` panels, whatever the rows'
+    length."""
+    monkeypatch.setattr(cuda_k, "_l2_bytes", lambda dev: l2)
+    monkeypatch.setattr(cuda_k, "_PANEL_L2_SHARE", (ncols * n * 4 // k + 1.5) / l2)
+    monkeypatch.setattr(cuda_k, "_PANEL_MIN_ENTRIES", 0.0)
+
+
+@pytest.mark.parametrize("k", [2, 3, 7])
+@pytest.mark.parametrize("ptr_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["long row", "half empty"])
+def test_split_panels_is_a_plain_per_row_split(case, ptr_dtype, k):
+    """``split_panels`` against a per-row split on the host: each row's
+    run in each panel starts where ``np.searchsorted`` puts the panel's
+    first column in the row; the panels' row pointers, bases, entry
+    counts and share edges follow, at 8 B a row a panel (and the edges)."""
+    a = _panel_case(case)
+    rp = torch.from_numpy(a.indptr.astype(np.int64)).to(ptr_dtype)
+    ci = torch.from_numpy(a.indices.astype(np.int32))
+    bounds = spmm.panel_bounds(a.shape[1], k)
+    assert bounds[0] == 0 and bounds[-1] == a.shape[1] and len(bounds) == k + 1
+    assert max(np.diff(bounds)) - min(np.diff(bounds)) <= 1
+    panels = spmm.split_panels(rp, ci, bounds)
+    starts = np.array([a.indptr[r] + np.searchsorted(a.indices[a.indptr[r]:a.indptr[r + 1]],
+                                                      bounds)
+                       for r in range(a.shape[0])]).T  # (k + 1, nrows)
+    lengths = np.diff(starts, axis=0)
+    ptrs = np.zeros((k, a.shape[0] + 1), np.int64)
+    np.cumsum(lengths, axis=1, out=ptrs[:, 1:])
+    assert panels.count == k and panels.bounds == bounds
+    assert panels.ptrs.dtype == panels.base.dtype == torch.int32
+    assert np.array_equal(panels.ptrs.numpy(), ptrs)
+    assert np.array_equal(panels.base.numpy(), starts[:-1] - ptrs[:, :-1])
+    assert panels.nnz == tuple(int(x) for x in lengths.sum(1)) and sum(panels.nnz) == a.nnz
+    want = torch.cat([spmv.csr_shares(panels.ptrs[i], panels.nnz[i], spmm.CSR_TILE)[0]
+                      for i in range(k)])
+    assert torch.equal(panels.edges, want)
+    assert panels.nbytes - panels.edges.numel() * 8 <= 8 * (a.shape[0] + 1) * k
+    if case == "half empty" and k > 2:
+        assert panels.nnz[-1] == 0
+
+
+def test_rows_in_order_by_chunks(monkeypatch):
+    """``rows_in_order`` reads a drop of the column index as a fault only
+    inside a row, in chunks as small as 3 entries, empty rows and a
+    drop at a chunk's edge included."""
+    monkeypatch.setattr(spmm, "_ORDER_CHUNK", 3)
+    a = _panel_case("long row")
+    rp = torch.from_numpy(a.indptr.astype(np.int64))
+    ci = torch.from_numpy(a.indices.astype(np.int32))
+    assert spmm.rows_in_order(rp, ci)
+    assert spmm.rows_in_order(rp.to(torch.int32), ci)
+    for r in (17, 401, a.shape[0] - 1):
+        bad = ci.clone()
+        k0 = int(a.indptr[r])
+        bad[k0], bad[k0 + 1] = ci[k0 + 1], ci[k0]
+        assert not spmm.rows_in_order(rp, bad), r
+
+
+def test_panel_rule_at_the_cells_shapes():
+    """The panels ``spmm_panels`` gives at the benchmark's shapes (B 50
+    wide, an H100's 50 MB of L2), as numbers: both KDD-Cup'11 products run
+    in panels (B 125 and 200 MB, 263 and 420 entries a row); Amazon Books
+    (2.8 and 9.7 a row) and MovieLens-25M (B 11.8 and 32.5 MB, the
+    micro-block route) keep one pass; nothing past 2^31 entries panels."""
+    l2 = 50 << 20
+    slab = int(l2 * cuda_k._PANEL_L2_SHARE)
+    k_r, k_rt = -(-624_961 * 200 // slab), -(-1_000_990 * 200 // slab)
+    assert cuda_k.spmm_panel_count(1_000_990, 624_961, 262_810_175, 50, l2) == k_r > 1
+    assert cuda_k.spmm_panel_count(624_961, 1_000_990, 262_810_175, 50, l2) == k_rt > k_r
+    assert 262_810_175 / 1_000_990 / k_r >= cuda_k._PANEL_MIN_ENTRIES
+    assert 262_810_175 / 624_961 / k_rt >= cuda_k._PANEL_MIN_ENTRIES
+    assert cuda_k.spmm_panel_count(8_026_324, 2_330_066, 22_507_155, 50, l2) == 1
+    assert cuda_k.spmm_panel_count(2_330_066, 8_026_324, 22_507_155, 50, l2) == 1
+    assert 22_507_155 / 2_330_066 / -(-8_026_324 * 200 // slab) < cuda_k._PANEL_MIN_ENTRIES
+    assert cuda_k.spmm_panel_count(162_541, 59_047, 25_000_095, 50, l2) == 1
+    assert cuda_k.spmm_panel_count(1 << 22, 1 << 22, 1 << 31, 50, l2) == 1
+    assert cuda_k.spmm_panel_count(10, 3, 10_000, 1 << 24, l2) == 3  # a panel a column
+    assert cuda_k.panels_for_slab(624_961, 50, slab) == k_r
+
+
+def test_no_panels_off_a_card(monkeypatch):
+    """Off a card the rule sees no L2 and keeps one pass, at KDD-Cup'11's
+    shapes and at a CPU matrix whose B would take panels on a card."""
+    assert cuda_k._l2_bytes(torch.device("cpu")) == 0
+    assert cuda_k.spmm_panel_count(1_000_990, 624_961, 262_810_175, 50, 0) == 1
+    a = _panel_case("long row")
+    monkeypatch.setattr(cuda_k, "_PANEL_L2_SHARE", 1e-9)
+    monkeypatch.setattr(cuda_k, "_PANEL_MIN_ENTRIES", 0.0)
+    c = _port(a)
+    assert cuda_k._spmm_panels(c, False, 50) is None
+    assert cuda_k._spmm_panels(c, True, 50) is None
+    assert getattr(c, "_spmm_panels_cache", None) is None
+
+
+@pytest.mark.parametrize("k", [2, 3, 5, 7])
+@pytest.mark.parametrize("case", ["long row", "half empty"])
+def test_panelled_mult_dense_matches_one_pass(case, k, monkeypatch, routes):
+    """With the slab shrunk to give ``k`` panels, ``mult_dense`` on the
+    CSR-form route runs in panels (built once, a ``layout-build-panels``
+    event; ``csr.spmm.panels`` counts ``k`` a call, the plan's hit
+    included) and matches the one-pass product and scipy; the plain
+    version panel by panel is what runs on the CPU."""
+    from csr_tpu_torch import tracing
+
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, 0.0),))
+    a = _panel_case(case)
+    n = 5
+    _force_panels(monkeypatch, a.shape[1], n, k)
+    c = _port(a)
+    b = torch.from_numpy(_operand(a, n, 133))
+    rec = tracing.enable()
+    try:
+        with kernels.use_kernel("cuda"):
+            d = c.mult_dense(b)
+            again = c.mult_dense(b)
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    panels = cuda_k._spmm_panels(c, False, n)
+    assert panels.count == k
+    assert counters["csr.spmm.panels"] == 2 * k and counters["plan.hit"] == 1
+    assert counters["form_builds.spmm_panels"] == 1
+    assert counters["event.layout-build-panels"] == 1
+    assert routes == [("mult_dense", "csr")] * 2
+    assert torch.equal(d, again)
+    assert torch.equal(d, spmm.spmm_csr_panels_reference(c.colinds, c.values, b, panels))
+    assert_product_close(d.numpy(), spmm.spmm_csr_reference(c.rowptrs, c.colinds,
+                                                            c.values, b).numpy())
+    assert_product_close(d.numpy(), a.astype(np.float64) @ b.numpy())
+
+
+@pytest.mark.parametrize("structure_only", [False, True])
+def test_panels_follow_an_edit_and_the_settings(structure_only, monkeypatch):
+    """The panels are cached on the matrix by count: B of another width
+    takes its own, an in-place edit of the values (or a rebinding) builds
+    them again, and a plan made under other panel settings is not taken."""
+    from csr_tpu_torch import tracing
+
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, 0.0),))
+    a = _panel_case("long row")
+    if structure_only:
+        a = _structure(a)
+    _force_panels(monkeypatch, a.shape[1], 4, 3)
+    c = _port(a, structure_only=structure_only)
+    b4, b8 = (torch.from_numpy(_operand(a, n, 134 + n)) for n in (4, 8))
+    rec = tracing.enable()
+    try:
+        with kernels.use_kernel("cuda"):
+            d4, d8 = c.mult_dense(b4), c.mult_dense(b8)
+            assert {cuda_k._spmm_panels(c, False, n).count for n in (4, 8)} == {3, 6}
+            before = cuda_k._spmm_panels(c, False, 8)
+            if not structure_only:
+                c.values.mul_(2)
+                assert torch.equal(c.mult_dense(b8), 2 * d8)
+                assert cuda_k._spmm_panels(c, False, 8) is not before
+            monkeypatch.setattr(cuda_k, "_PANEL_MIN_ENTRIES", 1e9)  # one pass again
+            one = c.mult_dense(b8)
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    assert counters["form_builds.spmm_panels"] == 2 + (not structure_only)
+    assert counters["plan.miss.stale"] == 1 + (not structure_only)
+    scale = 1 if structure_only else 2
+    assert_product_close(one.numpy(), scale * d8.numpy())
+    assert_product_close(d8.numpy(), a.astype(np.float64) @ b8.numpy())
+
+
+def test_rows_out_of_order_keep_one_pass(monkeypatch, routes):
+    """A matrix with a row out of column order runs in one pass whatever
+    the slab: its order is checked once (``form_builds.spmm_panels``, an
+    event of 1 panel) and ``csr.spmm.panels`` stays silent."""
+    from csr_tpu_torch import tracing
+
+    monkeypatch.setattr(cuda_k, "_SPMM_CSR_CROSSOVER", ((1, 0.0),))
+    a = _panel_case("long row")
+    _force_panels(monkeypatch, a.shape[1], 5, 4)
+    c = _port(a)
+    k0 = int(a.indptr[401])
+    c.colinds[k0 : k0 + 2] = c.colinds[k0 : k0 + 2].flip(0).clone()
+    c.values[k0 : k0 + 2] = c.values[k0 : k0 + 2].flip(0).clone()
+    b = torch.from_numpy(_operand(a, 5, 135))
+    events = []
+    kernels._listeners.append(lambda e, f: events.append((e, f.get("panels"))))
+    rec = tracing.enable()
+    try:
+        with kernels.use_kernel("cuda"):
+            d = c.mult_dense(b)
+            c.mult_dense(b)
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+        kernels._listeners.pop()
+    assert cuda_k._spmm_panels(c, False, 5) is None
+    assert "csr.spmm.panels" not in counters and counters["form_builds.spmm_panels"] == 1
+    assert ("layout-build-panels", 1) in events
+    assert_product_close(d.numpy(), a.astype(np.float64) @ b.numpy())
+
+
+def test_vmap_on_the_csr_route_runs_in_panels(monkeypatch):
+    """``torch.func.vmap`` of ``mult_vec`` and ``mult_vec_t`` on the CSR
+    route follows the rule at the batch's width: one ``spmm_csr`` a batch
+    with the matrix's (or its transpose's) panels, and no share edges."""
+    a = _panel_case("long row")
+    monkeypatch.setattr(cuda_k, "_CSR_CROSSOVER", 0.0)
+    monkeypatch.setattr(cuda_k, "_PANEL_MIN_ENTRIES", 0.0)
+    monkeypatch.setattr(cuda_k, "_l2_bytes", lambda dev: _L2)
+    monkeypatch.setattr(cuda_k, "_PANEL_L2_SHARE", 4 * 4 * 200 / _L2)
+    seen = []
+    real = spmm.spmm_csr
+    monkeypatch.setattr(spmm, "spmm_csr", lambda *x, **kw: seen.append(kw) or real(*x, **kw))
+    c = _port(a)
+    rng = np.random.default_rng(136)
+    X = torch.from_numpy(rng.uniform(-1, 1, (4, a.shape[1])).astype(np.float32))
+    Xt = torch.from_numpy(rng.uniform(-1, 1, (4, a.shape[0])).astype(np.float32))
+    with kernels.use_kernel("cuda"):
+        Y = torch.func.vmap(lambda v: c.mult_vec(v))(X)
+        Yt = torch.func.vmap(lambda v: c.mult_vec_t(v))(Xt)
+    # B 9000 x 4 and 600 x 4 floats, a slab of 200 x 4
+    assert [kw["panels"].count for kw in seen] == [45, 3]
+    assert all(kw["edges"] is None for kw in seen)
+    assert seen[0]["panels"] is cuda_k._spmm_panels(c, False, 4)
+    assert seen[1]["panels"] is cuda_k._spmm_panels(c, True, 4)
+    assert sum(seen[1]["panels"].nnz) == a.nnz and seen[1]["panels"].ptrs.shape == (3, 9001)
+    assert_product_close(Y.numpy(), (a.astype(np.float64) @ X.numpy().T).T)
+    assert_product_close(Yt.numpy(), (a.T.astype(np.float64) @ Xt.numpy().T).T)
+
+
+def test_wrapper_rejects_panels_of_another_matrix():
+    a = _panel_case("long row")
+    rp = torch.from_numpy(a.indptr.astype(np.int64))
+    ci = torch.from_numpy(a.indices.astype(np.int32))
+    v = torch.from_numpy(a.data)
+    panels = spmm.split_panels(rp, ci, spmm.panel_bounds(a.shape[1], 3))
+    b = torch.ones(a.shape[1], 2)
+    assert spmm.spmm_csr(rp, ci, v, b, panels=panels).shape == (a.shape[0], 2)
+    other = _panel_case("half empty")
+    rp2 = torch.from_numpy(other.indptr.astype(np.int64))
+    ci2 = torch.from_numpy(other.indices.astype(np.int32))
+    with pytest.raises(ValueError, match="panels"):
+        spmm.spmm_csr(rp2, ci2, None, torch.ones(other.shape[1], 2), panels=panels)
+    one = spmm.split_panels(rp, ci, spmm.panel_bounds(a.shape[1], 1))
+    with pytest.raises(ValueError, match="panels"):
+        spmm.spmm_csr(rp, ci, v, b, panels=one)
