@@ -2265,6 +2265,13 @@ def csr_cases(fl, ml):
     yield "realistic", realistic_hypersparse(), both
 
 
+def kept(csr, key):
+    """Form ``key`` that ``csr`` keeps while its tensors stand as they are
+    (``csr_tpu_torch/_forms.py``), or None."""
+    f = csr._forms
+    return f.get(key) if f is not None and f.fresh(csr) else None
+
+
 def csr_views(a, offset_c, offset_v, ptr_dtype, structure_only=False):
     """The CSR arrays of scipy ``a`` on the card, ``colinds`` and
     ``values`` as views ``offset_c`` and ``offset_v`` floats past a 16 B
@@ -2281,19 +2288,30 @@ def csr_views(a, offset_c, offset_v, ptr_dtype, structure_only=False):
     return rp, ci, None if structure_only else v
 
 
-def spmv_csr_into_nan(rp, ci, v, xd):
-    """The CSR-form SpMV kernel's zeroed path (``spmv_csr``'s launch, with
-    the edges of ``csr_shares``) into a y filled with NaN, so that a row
-    the kernel does not write shows."""
-    from csr_tpu_torch.ops import _cuda, spmv as spmv_op
+def into_nan(launch, operand):
+    """``launch(operand)`` with the f32 tensors it allocates by
+    ``torch.empty`` (its result) filled with NaN first, so that a row the
+    kernel does not write shows."""
+    empty = torch.empty
 
-    y = torch.full((rp.shape[0] - 1,), float("nan"), device="cuda")
-    slots = spmv_op.MAX_BLOCKS_PER_SM * spmv_op._sm_count(y.device)
-    scratch = torch.empty(2 * slots, dtype=torch.int64, device="cuda")
+    def nan_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.dtype == torch.float32 else t
+
+    torch.empty = nan_empty
+    try:
+        return launch(operand)
+    finally:
+        torch.empty = empty
+
+
+def spmv_csr_into_nan(rp, ci, v, xd):
+    """The CSR-form SpMV kernel's zeroed path (``spmv_csr_launch``, with
+    the edges of ``csr_shares``) into a y filled with NaN."""
+    from csr_tpu_torch.ops import spmv as spmv_op
+
     edges = spmv_op.csr_shares(rp, ci.shape[0])[0]
-    _cuda.spmv_csr(rp, edges, False, ci, v, xd, y, True, scratch[slots:],
-                   scratch[:slots])
-    return y
+    return into_nan(spmv_op.spmv_csr_launch(rp, ci, v, edges, xd), xd)
 
 
 def cut_rows_matrix(rng, nrows=3_000_000, ncols=1 << 20):
@@ -2424,10 +2442,8 @@ def phase_csr(fl, ml, card):
             large = cuda_k._needs_large(*b.shape)
             if route == "csr":
                 want = {"spmv_csr": 1}
-                assert getattr(csr, "_mb_layout_t_cache" if t else "_mb_layout_cache",
-                               None) is None
-                assert getattr(csr, "_mb_large_t_cache" if t else "_mb_large_cache",
-                               None) is None
+                assert kept(csr, "layout_t" if t else "layout") is None
+                assert kept(csr, "large_t" if t else "large") is None
             elif large:
                 want = {"spmv_microblock": sum(
                     len(p) for _, p in cuda_k._cached_large(csr, t))}
@@ -2586,19 +2602,13 @@ def spmm_share_card(c, ref, rtol=SPMM_RTOL, atol=SPMM_ATOL) -> float:
 
 
 def spmm_csr_into_nan(rp, ci, v, bd):
-    """The CSR-form SpMM kernel (``spmm_csr``'s launch, with the edges of
+    """The CSR-form SpMM kernel (``spmm_csr_launch``, with the edges of
     ``csr_shares`` and ``csr_plan``'s lanes and load width) into a C filled
-    with NaN, so that a row the kernel does not write shows."""
-    from csr_tpu_torch.ops import _cuda, spmm as spmm_op, spmv as spmv_op
+    with NaN."""
+    from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
 
-    nrows, nnz, n = rp.shape[0] - 1, ci.shape[0], bd.shape[1]
-    c = torch.full((nrows, n), float("nan"), device="cuda")
-    shares = spmv_op.n_shares(nrows, nnz, spmm_op.CSR_TILE)
-    width, lanes = spmm_op.csr_plan(n, bd.stride(0), bd.data_ptr() & -bd.data_ptr())
-    _cuda.spmm_csr(rp, spmv_op.csr_shares(rp, nnz, spmm_op.CSR_TILE)[0], False, ci,
-                   v, bd, c, torch.empty(shares, n, device="cuda"),
-                   torch.empty(shares, dtype=torch.int32, device="cuda"), width, lanes)
-    return c
+    edges = spmv_op.csr_shares(rp, ci.shape[0], spmm_op.CSR_TILE)[0]
+    return into_nan(spmm_op.spmm_csr_launch(rp, ci, v, edges, bd), bd)
 
 
 def phase_spmm_csr_kernel_vs_plain():
@@ -2775,8 +2785,8 @@ def phase_spmm_csr(fl, ml, card):
                 want = {"spmm_csr": 1}
                 assert not [e for e in events if e.startswith("layout-build")
                             and e != "layout-build-panels"], events
-                for attr in ("_mb_layout_cache", "_mb_large_cache"):
-                    assert n != widths[0] or getattr(csr, attr, None) is None, (tag, attr)
+                for form in ("layout", "large"):
+                    assert n != widths[0] or kept(csr, form) is None, (tag, form)
             elif route == "large":
                 want = {"spmm_microblock": sum(
                     len(p) for _, p in cuda_k._cached_large(csr, False))}
@@ -2946,8 +2956,8 @@ def phase_spmm_csr_vmap(card, k=50):
         torch.cuda.synchronize()
         counts = launch_counts()
         assert {m: c for m, c in counts.items() if c} == {"spmm_csr": 1}, counts
-        for attr in ("_mb_layout_cache", "_mb_large_cache"):
-            assert getattr(csr, attr, None) is None, attr
+        for form in ("layout", "large"):
+            assert kept(csr, form) is None, form
         Y_loop = torch.stack([csr.mult_vec(X[i]) for i in range(k)])
         ms_batch = device_ms(lambda: torch.func.vmap(lambda v: csr.mult_vec(v))(X))
         ms_loop = device_ms(lambda: [csr.mult_vec(X[i]) for i in range(k)])

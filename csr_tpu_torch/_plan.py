@@ -3,34 +3,34 @@ Product plans: a steady-state ``mult_vec``, ``mult_vec_t`` or
 ``mult_dense`` goes from the API to its kernel launch in one look-up.
 
 A :class:`Plan` is what a call's general path found for one method of
-one matrix and one kind of operand, kept on the matrix (``CSR._plans``,
-by method): the kernel module, the matrix's three tensors and their
-version counters, the operand's key (:func:`operand_key`), the cached
-form the launch reads, the launch itself with the matrix's side of its
-arguments bound (``run``), and the trace events the general path emits.
-The ``cuda`` backend makes one where its route is a single launch on a
-cached form (the micro-block SpMV or SpMM on one layout, the CSR-form
-SpMV either way or SpMM) and puts it on the handle; the API keeps it
-once the call returns.  On the CPU the launch is the kernel wrapper on
-the cached form, which runs its plain version.
+one matrix and one kind of operand, kept in the matrix's set of forms
+(:mod:`csr_tpu_torch._forms`, key ``("plan", method)``): the kernel
+module, the operand's key (:func:`operand_key`), the launch itself with
+the matrix's side of its arguments bound (``run``), and the trace events
+the general path emits.  The set's stamp is the plan's freshness, and
+the set keeps alive the forms its launch reads.  The ``cuda`` backend
+makes one where its route is a single launch on a cached form (the
+micro-block SpMV or SpMM on one layout, the CSR-form SpMV either way or
+SpMM) and puts it on the handle; the API keeps it once the call returns.
+On the CPU the launch is the kernel wrapper on the cached form, which
+runs its plain version.
 
 :func:`run` takes the plan where every condition of the general path
 that it skips still holds: the active kernel module is the plan's, the
-matrix is not split into row shards, its tensors are the same objects
-at the same versions (the freshness test of the cached forms, so an
-in-place edit or a rebinding invalidates the plan as it invalidates
-them), the kernel's route settings (its crossovers and budgets, which a
-caller may set) are those it was made under, the operand's key matches,
-no ``torch.func`` transform is active and the grad rule passes.
-Otherwise the general path runs as it would without plans, and raises
-where it raises.  A plan holds no operand or result and no device
-memory of its own; a new one replaces the old by one attribute write,
-so two threads at worst build the same plan twice.
+matrix is not split into row shards, the set's stamp stands (so an
+in-place edit or a rebinding invalidates the plan with the forms), the
+kernel's route settings (its crossovers and budgets, which a caller may
+set) are those it was made under, the operand's key matches, no
+``torch.func`` transform is active and the grad rule passes.  Otherwise
+the general path runs as it would without plans, and raises where it
+raises.  A plan holds no operand or result and no device memory of its
+own; a new one replaces the old by one item write, so two threads at
+worst build the same plan twice.
 
 While tracing records, each look-up counts ``plan.hit`` or
 ``plan.miss.<reason>`` (``key``: no plan for the method, another
 kernel, a matrix now past ``max_nnz`` or another operand; ``stale``: the
-tensors or the route settings moved; ``grad``; ``transform``), and each
+stamp or the route settings moved; ``grad``; ``transform``), and each
 plan kept ``plan.build``.
 """
 
@@ -40,7 +40,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import tracing
+from . import _forms, tracing
 from .tracing import _listeners, count, trace
 
 
@@ -49,13 +49,7 @@ class Plan(NamedTuple):
 
     kernel: object  # the kernel module (set when the API keeps the plan)
     settings: tuple  # the kernel's route_settings() when it was made
-    rowptrs: torch.Tensor
-    colinds: torch.Tensor
-    values: torch.Tensor | None
-    versions: tuple  # CSR._versions() when it was made
-    nnz: int
     key: tuple  # operand_key of the operands it serves
-    form: object  # the cached form the launch reads, kept alive with it
     run: Callable  # operand -> result
     events: tuple  # ((event, fields), ...) in the general path's order
 
@@ -71,30 +65,28 @@ def operand_key(v: torch.Tensor) -> tuple:
     return (v.dtype, v.get_device(), v.shape, v.stride(), v.data_ptr() % 16)
 
 
-def make(csr, operand: torch.Tensor, settings: tuple, form, run: Callable,
+def make(operand: torch.Tensor, settings: tuple, run: Callable,
          events: tuple) -> Plan:
-    """The plan of a call on ``csr`` whose operand was ``operand``, under
-    the kernel's route ``settings``."""
-    return Plan(None, settings, csr.rowptrs, csr.colinds, csr.values,
-                csr._versions(), csr.nnz, operand_key(operand), form, run, events)
+    """The plan of a call whose operand was ``operand``, under the
+    kernel's route ``settings``."""
+    return Plan(None, settings, operand_key(operand), run, events)
 
 
-def run(csr, kernel, method: str, v):
-    """``method`` of ``csr`` by its plan, on ``kernel``; None where the
-    plan does not apply (see the module docstring)."""
-    plans = getattr(csr, "_plans", None)
-    plan = plans.get(method) if plans else None
+def run(csr, kernel, key: tuple, v):
+    """The product ``key`` (``("plan", method)``) of ``csr`` by its plan,
+    on ``kernel``; None where the plan does not apply (see the module
+    docstring)."""
+    f = csr._forms
+    plan = None if f is None else f.get(key)
     if _transform_level() is not None:
         reason = "transform"
-    elif (plan is None or plan.kernel is not kernel or plan.nnz > kernel.max_nnz
+    elif (plan is None or plan.kernel is not kernel or csr.nnz > kernel.max_nnz
           or not isinstance(v, torch.Tensor) or operand_key(v) != plan.key):
         reason = "key"
-    elif (csr.rowptrs is not plan.rowptrs or csr.colinds is not plan.colinds
-          or csr._values is not plan.values or csr._versions() != plan.versions
-          or kernel.route_settings() != plan.settings):
+    elif not f.fresh(csr) or kernel.route_settings() != plan.settings:
         reason = "stale"
     elif torch.is_grad_enabled() and (
-            v.requires_grad or (plan.values is not None and plan.values.requires_grad)):
+            v.requires_grad or (f.values is not None and f.values.requires_grad)):
         reason = "grad"
     else:
         count("plan.hit")
@@ -107,14 +99,15 @@ def run(csr, kernel, method: str, v):
         trace(after[0], **after[1])
         return out
     count("plan.miss." + reason)
+    if f is not None:
+        _forms.forms(csr)  # a stale set goes now, its plans and forms with it
     return None
 
 
-def keep(csr, kernel, method: str, handle) -> None:
-    """Keep on ``csr`` the plan its general path put on ``handle``, if
-    any, for ``kernel``."""
+def keep(csr, kernel, key: tuple, handle) -> None:
+    """Keep in ``csr``'s set, as ``key``, the plan its general path put
+    on ``handle``, if any, for ``kernel``."""
     plan = getattr(handle, "plan", None)
     if plan is not None:
-        csr._plans = {**(getattr(csr, "_plans", None) or {}),
-                      method: plan._replace(kernel=kernel)}
+        _forms.forms(csr)[key] = plan._replace(kernel=kernel)
         count("plan.build")

@@ -7,7 +7,7 @@ tensors on one ``device``.  Tensor inputs keep their device; a matrix
 built from numpy or scipy data with no ``device`` named lies on
 :func:`csr_tpu_torch.kernels.default_device`: the card when there is
 one, the CPU only where there is none.  A matrix built from numpy arrays
-also keeps them as ``_host``: the micro-block packing of the ``cuda``
+also keeps them as its host copies: the micro-block packing of the ``cuda``
 kernel runs on the host, and reading the tensors back from the card
 would cost a copy.  On the CPU the arrays are copied first (one pass
 over them), as the JAX package copies them to its device, so the
@@ -19,13 +19,14 @@ The value array is optional: a structure-only matrix has implicit
 values of 1.0 (float32).
 
 The methods that work "in place" (``sort_rows``, ``normalize_rows``,
-``fill_values``, ``drop_values``, ``_filter_zeros``) bind new tensors
-and drop the host copies; they never write into the tensors they held.
-The ``cuda`` kernel caches its layouts, and the matrix its row shards,
-host copies and product plans (:mod:`csr_tpu_torch._plan`), on the
-identity of the three tensors and on their version counters
-(:meth:`CSR._versions`), so a rebinding or an in-place edit of a tensor
-(``values.mul_(2)``) tells it that a cached form is stale.
+``fill_values``, ``drop_values``, ``_filter_zeros``) bind new tensors;
+they never write into the tensors they held.
+What a matrix keeps (the ``cuda`` kernel's layouts, share edges and
+panels, the row shards, the host copies, the product plans of
+:mod:`csr_tpu_torch._plan`) is one set, :mod:`csr_tpu_torch._forms`,
+stamped with the identity of the three tensors and their version
+counters (:meth:`CSR._versions`), so a rebinding or an in-place edit of
+a tensor (``values.mul_(2)``) drops the whole set at the next look-up.
 
 A CSR is a ``torch.utils._pytree`` node, as the JAX class is a pytree:
 ``torch.func.vmap`` and ``torch.func.grad`` take and return it.
@@ -40,7 +41,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as _pytree
 
-from . import _plan, _rows, structure
+from . import _forms, _plan, _rows, structure
 from .dtypes import COLIND_DTYPE, INT32_MAX, VALUE_DTYPE, ptr_dtype
 from .kernels import default_device, get_kernel, releasing
 from .tracing import count, spanned
@@ -86,13 +87,7 @@ class CSR:
         device(torch.device): where the tensors live.
     """
 
-    __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_host",
-                 "_host_versions", "_mb_layout_cache", "_mb_layout_t_cache",
-                 "_shard_cache", "_mb_large_cache", "_mb_large_t_cache",
-                 "_csr_t_cache", "_mb_stat_cache", "_spmv_edges_cache",
-                 "_spmv_edges_t_cache", "_spmm_edges_cache",
-                 "_spmm_edges_t_cache", "_spmm_panels_cache",
-                 "_spmm_panels_t_cache", "_plans")
+    __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_forms")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True,
                  device=None):
@@ -110,11 +105,8 @@ class CSR:
                             else np.array(a) for a in (rps, cis, vs))
         # keep the host arrays when the data arrived as numpy: packing for
         # the cuda kernel runs on the host
-        if tensors:
-            self._host = None
-        else:
-            self._host = (np.asarray(rps), np.asarray(cis),
-                          None if vs is None else np.asarray(vs))
+        host = None if tensors else (np.asarray(rps), np.asarray(cis),
+                                     None if vs is None else np.asarray(vs))
 
         if _cast:
             cis = _as_tensor(cis, COLIND_DTYPE, device)
@@ -130,7 +122,9 @@ class CSR:
         self.rowptrs = rps
         self.colinds = cis
         self._values = vs
-        self._host_versions = self._versions()
+        self._forms = None
+        if host is not None:
+            _forms.forms(self)["host"] = host
 
     # -- shape / data properties -------------------------------------------
 
@@ -148,9 +142,9 @@ class CSR:
 
     @values.setter
     def values(self, vs):
-        self._host = None
-        if vs is None:
+        if vs is None:  # no identity for the stamp to tell from an earlier None
             self._values = None
+            self._forms = None
             return
         vs = _as_tensor(vs, None, self.device)
         if vs.shape[0] < self.nnz:
@@ -170,18 +164,12 @@ class CSR:
                     -1 if ci.is_inference() else ci._version,
                     None if vs is None else -1 if vs.is_inference() else vs._version)
 
-    def _kept_host(self):
-        """The kept host copies, or None: they are dropped once a tensor
-        has moved past the version they were taken at."""
-        if self._host is not None and self._host_versions != self._versions():
-            self._host = None
-        return self._host
-
     def host_arrays(self):
         """``(rowptrs, colinds, values)`` as numpy arrays: the kept host
         copies, or the tensors read back."""
-        if self._kept_host() is not None:
-            return self._host
+        host = _forms.forms(self).get("host")
+        if host is not None:
+            return host
         vs = self.values
         count("host_reads", 2 if vs is None else 3)
         return (self.rowptrs.cpu().numpy(), self.colinds.cpu().numpy(),
@@ -263,7 +251,9 @@ class CSR:
             rpdtype = _torch_dtype(rpdtype)
             if nnz > torch.iinfo(rpdtype).max:
                 raise ValueError(f"rpdtype {rpdtype} cannot address {nnz} entries")
+            host = csr.host_arrays()  # the same entries in a new dtype
             csr.rowptrs = csr.rowptrs.to(rpdtype)
+            _forms.forms(csr)["host"] = host
         return csr
 
     @classmethod
@@ -380,9 +370,10 @@ class CSR:
             self.rowptrs, self.colinds, self.values, begin, end
         )
         out = CSR(end - begin, self.ncols, nnz, rps, cis, vs, _cast=False)
-        if self._kept_host() is not None:
-            out._host = structure.subset_rows_arrays(*self._host, begin, end)[:3]
-            out._host_versions = out._versions()
+        host = _forms.forms(self).get("host")
+        if host is not None:
+            _forms.forms(out)["host"] = structure.subset_rows_arrays(
+                *host, begin, end)[:3]
         return out
 
     def pick_rows(self, rows, *, include_values=True):
@@ -430,7 +421,6 @@ class CSR:
                                              self.values, self.nrows)
         self.colinds = cis
         self._values = vs
-        self._host = None
 
     def transpose(self, include_values=True):
         """The transpose, on this matrix's device; within each of its rows
@@ -477,14 +467,12 @@ class CSR:
             raise ValueError("cannot normalize a structure-only matrix")
         vs, stats = fn(self)
         self._values = vs
-        self._host = None
         return stats
 
     def drop_values(self):
         """Remove the value array **in place** (deprecated)."""
         warnings.warn("drop_values is deprecated", DeprecationWarning)
-        self._values = None
-        self._host = None
+        self.values = None
 
     def fill_values(self, value):
         """Set every stored value to ``value`` **in place** (a new tensor
@@ -493,7 +481,6 @@ class CSR:
         if vs is None:
             vs = torch.empty(self.nnz, dtype=VALUE_DTYPE, device=self.device)
         self._values = torch.full_like(vs, value)
-        self._host = None
 
     # -- multiplication ----------------------------------------------------
 
@@ -516,14 +503,14 @@ class CSR:
             torch.Tensor: length ``nrows``, on the matrix's device.
         """
         K = get_kernel()
-        y = _plan.run(self, K, "mult_vec", v)
+        y = _plan.run(self, K, ("plan", "mult_vec"), v)
         if y is not None:
             return y
         v = self._operand(v, self.ncols)
         if self.nnz <= K.max_nnz:
             with releasing(K.to_handle(self), K) as h:
                 y = K.mult_vec(h, v)
-            _plan.keep(self, K, "mult_vec", h)
+            _plan.keep(self, K, ("plan", "mult_vec"), h)
             return y
         svs = []
         for s in self._shard_rows(K.max_nnz):
@@ -543,14 +530,14 @@ class CSR:
             torch.Tensor: length ``ncols``, on the matrix's device.
         """
         K = get_kernel()
-        y = _plan.run(self, K, "mult_vec_t", v)
+        y = _plan.run(self, K, ("plan", "mult_vec_t"), v)
         if y is not None:
             return y
         v = self._operand(v, self.nrows)
         if self.nnz <= K.max_nnz:
             with releasing(K.to_handle(self), K) as h:
                 y = K.mult_vec_t(h, v)
-            _plan.keep(self, K, "mult_vec_t", h)
+            _plan.keep(self, K, ("plan", "mult_vec_t"), h)
             return y
         # row shards contribute partial sums over the whole column space
         out = None
@@ -613,7 +600,7 @@ class CSR:
             torch.Tensor: shape ``(nrows, n)``, on the matrix's device.
         """
         K = get_kernel()
-        c = _plan.run(self, K, "mult_dense", b)
+        c = _plan.run(self, K, ("plan", "mult_dense"), b)
         if c is not None:
             return c
         b = _as_tensor(b, None, self.device)
@@ -623,7 +610,7 @@ class CSR:
         if self.nnz <= K.max_nnz:
             with releasing(K.to_handle(self), K) as h:
                 c = K.mult_dense(h, b)
-            _plan.keep(self, K, "mult_dense", h)
+            _plan.keep(self, K, ("plan", "mult_dense"), h)
             return c
         outs = []
         for s in self._shard_rows(K.max_nnz):
@@ -639,27 +626,19 @@ class CSR:
         self.rowptrs = rps
         self.colinds = cis
         self._values = vs
-        self._host = None
 
     # -- capacity sharding -------------------------------------------------
 
     def _shard_rows(self, tgt_nnz):
         """Shard by rows so each shard has at most ``tgt_nnz`` stored
-        entries.  The shard list is cached on the matrix, keyed on the
-        identity and the version counters of its three tensors and on the
-        target, so a second call reuses each shard's cached layout and an
-        in-place edit of a tensor drops it."""
+        entries.  The shard list is kept with the matrix's forms (key
+        ``("shards", tgt_nnz)``), so a second call reuses each shard's
+        cached layout and an in-place edit of a tensor drops it."""
         assert tgt_nnz > 0
-        cached = getattr(self, "_shard_cache", None)
-        if (
-            cached is not None
-            and cached[0] is self.rowptrs
-            and cached[1] is self.colinds
-            and cached[2] is self._values
-            and cached[3] == tgt_nnz
-            and cached[5] == self._versions()
-        ):
-            return cached[4]
+        kept = _forms.forms(self)
+        shards = kept.get(("shards", tgt_nnz))
+        if shards is not None:
+            return shards
 
         rowptrs_host = self.host_arrays()[0]
         rest = self
@@ -677,10 +656,7 @@ class CSR:
             rest = rest.subset_rows(split, rest.nrows)
             rest_off += split
         shards.append(rest)
-        self._shard_cache = (
-            self.rowptrs, self.colinds, self._values, tgt_nnz, shards,
-            self._versions(),
-        )
+        kept[("shards", tgt_nnz)] = shards
         return shards
 
     @classmethod
@@ -727,14 +703,14 @@ def _csr_flatten(c: CSR):
 
 
 def _csr_unflatten(leaves, context) -> CSR:
-    """A CSR of the leaves, with no host copy (the leaves may be other
-    tensors than the ones the host copy was made from) and no cache."""
+    """A CSR of the leaves, with no kept form (the leaves may be other
+    tensors than the ones the forms were made from)."""
     leaves = list(leaves)
     obj = object.__new__(CSR)
     obj.nrows, obj.ncols = context
     obj.rowptrs, obj.colinds = leaves[:2]
     obj._values = leaves[2] if len(leaves) == 3 else None
-    obj._host = None
+    obj._forms = None
     return obj
 
 

@@ -13,11 +13,13 @@ SpGEMM (``mult_ab``, ``mult_abt``) run the one behind
 :func:`csr_tpu_torch.ops.spmm.spmm_csr`.  On a CPU matrix each wrapper
 runs its kernel's plain PyTorch version.
 
-Every cached form (layouts, the transpose's CSR tensors, the route
-statistic, the handle's torch handle and dense form) is keyed on the
-identity of the matrix's three tensors and on their version counters
-(:func:`_fresh`), so an op that rebinds them and an in-place edit
-(``values.mul_(2)``) alike make it stale.
+Every cached form (layouts, the transpose's CSR tensors, share edges,
+column panels, the route statistic) lies in the matrix's one set of
+forms (:mod:`csr_tpu_torch._forms`), and the handle's torch handle and
+dense form in a set of the handle's own, each stamped with the identity
+of the matrix's three tensors and their version counters, so an op that
+rebinds them and an in-place edit (``values.mul_(2)``) alike make it
+stale.
 
 Routing, as in the JAX package, decided from shapes and dtypes before
 any launch (and from the structure's micro-row count):
@@ -94,7 +96,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from csr_tpu_torch import _plan, native
+from csr_tpu_torch import _forms, _plan, native
 from csr_tpu_torch.dtypes import ptr_dtype
 from csr_tpu_torch.kernels import torch as _torch_k
 from csr_tpu_torch.kernels import trace
@@ -102,7 +104,7 @@ from csr_tpu_torch.ops import microblock
 from csr_tpu_torch.ops import spgemm as _spgemm_op
 from csr_tpu_torch.ops import spmm as _spmm_op
 from csr_tpu_torch.ops import spmv as _spmv_op
-from csr_tpu_torch.tracing import count, recording, span, spanned
+from csr_tpu_torch.tracing import count, recording, spanned
 
 # Per-operation capacity, from the card's memory: an H100 holds 80 GB.  A
 # layout costs 6 B per padded slot, 12 B per stored entry at fill 0.5.  A
@@ -290,22 +292,14 @@ def _microrows(csr, transpose: bool) -> int:
     return total
 
 
-def _build_stat(csr, transpose: bool) -> dict:
-    return {(transpose, _LARGE_WINDOWS): _microrows(csr, transpose)}
-
-
 def _layout_bytes_per_entry(csr, transpose: bool, versions=None) -> float:
     """Device bytes a stored entry of the (256, 1) micro-block layout of
     ``csr`` (or of its transpose), from :func:`_microrows` (cached on the
     matrix as the layouts are, by direction and ``_LARGE_WINDOWS``: the
     ``csr.build.stat`` span)."""
-    stats = _cached(csr, "_mb_stat_cache", _build_stat, transpose, versions)
-    key = (transpose, _LARGE_WINDOWS)
-    if key not in stats:  # the other direction, or another window budget
-        with span("csr.build.stat"):
-            stats[key] = _microrows(csr, transpose)
-        count("form_builds.stat")
-    return stats[key] * _MICROROW_BYTES / max(csr.nnz, 1)
+    microrows = _forms.cached(csr, ("stat", transpose, _LARGE_WINDOWS),
+                              lambda: _microrows(csr, transpose), versions)
+    return microrows * _MICROROW_BYTES / max(csr.nnz, 1)
 
 
 def _spmv_route(csr, transpose: bool, versions=None) -> str:
@@ -332,7 +326,7 @@ def _csr_form(csr):
             None if vals is None else vals.to(torch.float32))
 
 
-def _build_csr_t(csr, transpose: bool):
+def _build_csr_t(csr):
     """The transpose's CSR tensors on the matrix's device, by the native
     host transpose (as :func:`_host_form` makes it)."""
     nrows, _, rp, cis, vals = _host_form(csr, True)
@@ -342,7 +336,7 @@ def _build_csr_t(csr, transpose: bool):
     cis = torch.from_numpy(np.ascontiguousarray(cis, np.int32)).to(dev)
     if vals is not None:
         vals = torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(dev)
-    trace("layout-build-csr", nnz=len(cis), transpose=transpose,
+    trace("layout-build-csr", nnz=len(cis), transpose=True,
           bytes=sum(t.numel() * t.element_size()
                     for t in (rp, cis, vals) if t is not None))
     return rp, cis, vals
@@ -350,7 +344,7 @@ def _build_csr_t(csr, transpose: bool):
 
 def _cached_csr_t(csr, versions=None):
     """The transpose's CSR tensors, cached on the matrix."""
-    return _cached(csr, "_csr_t_cache", _build_csr_t, True, versions)
+    return _forms.cached(csr, "csr_t", lambda: _build_csr_t(csr), versions)
 
 
 def _build_edges(csr, transpose: bool, tile: int) -> torch.Tensor:
@@ -381,29 +375,23 @@ def _count_split(rowptrs, rows, entries) -> None:
     count("csr.edges.rows_spanning", int((cuts >= 2).sum()))
 
 
-def _build_spmv_edges(csr, transpose: bool):
-    return _build_edges(csr, transpose, _spmv_op.CSR_TILE)
-
-
-def _build_spmm_edges(csr, transpose: bool):
-    return _build_edges(csr, transpose, _spmm_op.CSR_TILE)
-
-
 def _spmv_edges(csr, transpose: bool, versions=None) -> torch.Tensor:
     """The rows at the CSR-form SpMV's share edges of ``csr`` (or of its
     transpose): ``ops/spmv.py:csr_shares``' first tensor, made by one
     ``searchsorted`` and cached on the matrix, so the kernel searches
     nothing."""
-    attr = "_spmv_edges_t_cache" if transpose else "_spmv_edges_cache"
-    return _cached(csr, attr, _build_spmv_edges, transpose, versions)
+    return _forms.cached(csr, "spmv_edges_t" if transpose else "spmv_edges",
+                         lambda: _build_edges(csr, transpose, _spmv_op.CSR_TILE),
+                         versions)
 
 
 def _spmm_edges(csr, transpose: bool = False, versions=None) -> torch.Tensor:
     """The rows at the CSR-form SpMM's share edges of ``csr`` (or of its
     transpose; its shares are smaller than SpMV's), cached as
     :func:`_spmv_edges` are."""
-    attr = "_spmm_edges_t_cache" if transpose else "_spmm_edges_cache"
-    return _cached(csr, attr, _build_spmm_edges, transpose, versions)
+    return _forms.cached(csr, "spmm_edges_t" if transpose else "spmm_edges",
+                         lambda: _build_edges(csr, transpose, _spmm_op.CSR_TILE),
+                         versions)
 
 
 def _host_form(csr, transpose: bool):
@@ -451,67 +439,42 @@ def _build_large(csr, transpose: bool):
     return chunks
 
 
-def _fresh(cached, csr, versions=None) -> bool:
-    """Whether a form cached as ``(rowptrs, colinds, values, form,
-    versions)`` was made from ``csr``'s tensors as they are now: the same
-    three tensors (an op that replaces them rebinds), at the same version
-    counters (an in-place edit such as ``values.mul_(2)`` moves one).
-    ``versions`` is ``csr._versions()`` where the caller has read it."""
-    return (cached is not None and cached[0] is csr.rowptrs
-            and cached[1] is csr.colinds and cached[2] is csr.values
-            and cached[4] == (csr._versions() if versions is None else versions))
-
-
-def _entry(csr, form) -> tuple:
-    """``form`` as a cache entry for :func:`_fresh`."""
-    return (csr.rowptrs, csr.colinds, csr.values, form, csr._versions())
-
-
-def _cached(csr, attr: str, build, transpose: bool, versions=None):
-    """``build(csr, transpose)``, cached on the matrix while
-    :func:`_fresh`: a rebinding or an in-place edit of its tensors
-    invalidates it.  A call that looks up several forms reads
-    ``versions`` once and passes it to each.  A build is a
-    ``csr.build.<form>`` span and counts in ``form_builds.<form>``, the
-    form named by ``attr`` (``_mb_layout_cache``: ``layout``)."""
-    cached = getattr(csr, attr, None)
-    if _fresh(cached, csr, versions):
-        return cached[3]
-    form = attr.removeprefix("_").removeprefix("mb_").removesuffix("_cache")
-    with span("csr.build." + form):
-        built = build(csr, transpose)
-    count("form_builds." + form)
-    setattr(csr, attr, _entry(csr, built))
-    return built
-
-
 def _cached_layout(csr, versions=None) -> microblock.MicroBlockLayout:
-    return _cached(csr, "_mb_layout_cache", _build, False, versions)
+    return _forms.cached(csr, "layout", lambda: _build(csr, False), versions)
 
 
 def _cached_layout_t(csr, versions=None) -> microblock.MicroBlockLayout:
-    return _cached(csr, "_mb_layout_t_cache", _build, True, versions)
+    return _forms.cached(csr, "layout_t", lambda: _build(csr, True), versions)
 
 
 def _cached_large(csr, transpose: bool, versions=None):
     """Chunk/panel layouts of ``csr`` (or of its transpose), cached."""
-    attr = "_mb_large_t_cache" if transpose else "_mb_large_cache"
-    return _cached(csr, attr, _build_large, transpose, versions)
+    return _forms.cached(csr, "large_t" if transpose else "large",
+                         lambda: _build_large(csr, transpose), versions)
 
 
 class CudaHandle:
-    """The CSR plus its lazily built forms: the layouts are cached on the
-    matrix, the torch handle and the dense form on the handle, all while
-    :func:`_fresh`; and the product plan of the call it serves, where its
-    route has one (``plan``, which the API keeps on the matrix)."""
+    """The CSR plus its lazily built forms: the layouts in the matrix's
+    set of forms, the torch handle and the dense form in the handle's own
+    (``_own``, under the same stamp, dying with the handle); and the
+    product plan of the call it serves, where its route has one (``plan``,
+    which the API keeps in the matrix's set)."""
 
-    __slots__ = ("csr", "_torch_handle", "_dense", "plan")
+    __slots__ = ("csr", "_own", "plan")
 
     def __init__(self, csr):
         self.csr = csr
-        self._torch_handle = None
-        self._dense = None
+        self._own = None
         self.plan = None
+
+    def _kept(self, key: str, build):
+        """``build()``, kept on the handle while the matrix's stamp stands."""
+        own = self._own
+        if own is None or not own.fresh(self.csr):
+            own = self._own = _forms.Forms(self.csr)
+        if key not in own:
+            own[key] = build()
+        return own[key]
 
     @property
     def layout(self) -> microblock.MicroBlockLayout:
@@ -523,17 +486,13 @@ class CudaHandle:
 
     @property
     def torch_handle(self):
-        if not _fresh(self._torch_handle, self.csr):
-            self._torch_handle = _entry(self.csr, _torch_k.to_handle(self.csr))
-        return self._torch_handle[3]
+        return self._kept("torch_handle", lambda: _torch_k.to_handle(self.csr))
 
     @property
     def dense(self) -> torch.Tensor:
         """The matrix densified in f32."""
-        if not _fresh(self._dense, self.csr):
-            self._dense = _entry(
-                self.csr, _torch_k.densify(self.torch_handle, torch.float32))
-        return self._dense[3]
+        return self._kept("dense", lambda: _torch_k.densify(self.torch_handle,
+                                                            torch.float32))
 
 
 def _to_handle_fields(csr) -> dict:
@@ -557,19 +516,12 @@ def from_handle(h):
 
 
 def release_handle(h, drop_cache: bool = False):
-    """Drop the handle's references.  The layouts stay cached on the
-    matrix unless ``drop_cache``, so repeated calls pack nothing."""
+    """Drop the handle's references.  The matrix's forms stay unless
+    ``drop_cache``, so repeated calls pack nothing."""
     trace("release_handle", **_release_fields(h.csr))
-    h._torch_handle = None
-    h._dense = None
+    h._own = None
     if drop_cache:
-        for attr in ("_mb_layout_cache", "_mb_layout_t_cache",
-                     "_mb_large_cache", "_mb_large_t_cache", "_csr_t_cache",
-                     "_mb_stat_cache", "_spmv_edges_cache",
-                     "_spmv_edges_t_cache", "_spmm_edges_cache",
-                     "_spmm_edges_t_cache", "_spmm_panels_cache",
-                     "_spmm_panels_t_cache", "_plans"):
-            setattr(h.csr, attr, None)
+        _forms.drop(h.csr)
 
 
 def order_columns(h):
@@ -626,8 +578,7 @@ def _mult(h, v, transpose: bool):
     if (route != "large" and not batched and v.dtype == out_dtype == torch.float32
             and (route != "csr" or transpose
                  or (a.colinds is c.colinds and a.values is c.values))):
-        h.plan = _plan.make(c, v, route_settings(), a, _spmv_run(a, v, ncols, op),
-                            _events(c))
+        h.plan = _plan.make(v, route_settings(), _spmv_run(a, v, ncols, op), _events(c))
     return y
 
 
@@ -813,7 +764,7 @@ def _spmm_panels(csr, transpose: bool, n: int, versions=None):
     :func:`spmm_panel_count`'s count on the matrix's card, where its rows hold
     their columns in order (``ops/spmm.py:rows_in_order``, checked once on
     the card).  Built at the first product that needs them and cached on
-    the matrix by count while :func:`_fresh`, as the share edges are (the
+    the matrix by count, as the share edges are (the
     ``csr.build.spmm_panels`` span, ``form_builds.spmm_panels``, a
     ``layout-build-panels`` event; while tracing records, each panel's
     share split counts in ``csr.edges.*`` as :func:`_build_edges`' do)."""
@@ -821,27 +772,24 @@ def _spmm_panels(csr, transpose: bool, n: int, versions=None):
     k = spmm_panel_count(nrows, ncols, csr.nnz, n, _l2_bytes(csr.device))
     if k == 1:
         return None
-    attr = "_spmm_panels_t_cache" if transpose else "_spmm_panels_cache"
-    cached = getattr(csr, attr, None)
-    if not _fresh(cached, csr, versions):
-        cached = _entry(csr, {})
-        setattr(csr, attr, cached)
-    forms = cached[3]  # {"in_order": bool, count: Panels or None}
-    if k not in forms:
-        rp, ci, _ = _cached_csr_t(csr) if transpose else _csr_form(csr)
-        with span("csr.build.spmm_panels"):
-            if "in_order" not in forms:
-                forms["in_order"] = _spmm_op.rows_in_order(rp, ci)
-            forms[k] = (_spmm_op.split_panels(rp, ci, _spmm_op.panel_bounds(ncols, k))
-                        if forms["in_order"] else None)
-        if recording() and forms[k]:  # each panel's share split
-            for i, nnz in enumerate(forms[k].nnz):
-                ptrs = forms[k].ptrs[i]
+
+    def build():
+        rp, ci, _ = _cached_csr_t(csr, versions) if transpose else _csr_form(csr)
+        kept = _forms.forms(csr, versions)
+        in_order = kept.get(("in_order", transpose))
+        if in_order is None:
+            in_order = kept[("in_order", transpose)] = _spmm_op.rows_in_order(rp, ci)
+        panels = (_spmm_op.split_panels(rp, ci, _spmm_op.panel_bounds(ncols, k))
+                  if in_order else None)
+        if recording() and panels:  # each panel's share split
+            for i, nnz in enumerate(panels.nnz):
+                ptrs = panels.ptrs[i]
                 _count_split(ptrs, *_spmv_op.csr_shares(ptrs, nnz, _spmm_op.CSR_TILE))
-        count("form_builds.spmm_panels")
-        trace("layout-build-panels", panels=k if forms[k] else 1, nnz=csr.nnz,
-              transpose=transpose, n=n, bytes=forms[k].nbytes if forms[k] else 0)
-    return forms[k]
+        trace("layout-build-panels", panels=k if panels else 1, nnz=csr.nnz,
+              transpose=transpose, n=n, bytes=panels.nbytes if panels else 0)
+        return panels
+
+    return _forms.cached(csr, ("spmm_panels", transpose, k), build, versions)
 
 
 def _spmm_route(csr, n: int, versions=None) -> str:
@@ -885,8 +833,7 @@ def _sparse_times_dense(h, b, op: str, plan: bool = False):
         form, edges = _cached_layout(c, ver), None
         out = _spmm_op.spmm(form, b)
     if plan and n and torch._C._functorch.maybe_current_level() is None:
-        h.plan = _plan.make(c, b, route_settings(), (form, edges, panels),
-                            _spmm_run(form, edges, b, panels),
+        h.plan = _plan.make(b, route_settings(), _spmm_run(form, edges, b, panels),
                             _events(c, (op, fields)))
     return out
 

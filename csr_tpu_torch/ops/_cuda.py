@@ -9,8 +9,8 @@ includes and of the flags.  The library is loaded
 with :mod:`ctypes`; pointers and the stream are passed as ``c_void_p``
 from ``tensor.data_ptr()`` and :func:`stream`.  The kernel wrappers of
 ``ops/`` bind a kernel's :func:`entry` and the matrix's side of its
-arguments once and launch by :func:`call_on`; :func:`spmv_csr`,
-:func:`spmm_csr` and :func:`spmv_bucket` launch from tensors.
+arguments once and launch by :func:`call_on`; :func:`spmv_bucket`
+launches from tensors.
 
 Nothing here runs at import: the CPU tests import this module on machines
 with no ``nvcc``.  A build or launch failure raises; nothing falls back.
@@ -155,40 +155,6 @@ def spmv_bucket(vals, meta, rbcb, held, groups, x, y, grid: int,
             held.data_ptr(), groups.data_ptr(), n_layers, n_buckets, m,
             x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0), grid,
             shift, nrows, torch.cuda.current_stream(y.device).cuda_stream)
-
-
-def spmv_csr(rowptrs, edges, search: bool, colinds, values, x, y,
-             zeroed: bool, carry, carry_row) -> None:
-    """Launch the CSR-form SpMV kernel, ``y = A @ x`` (``zeroed``) or
-    ``y += A @ x`` read from the matrix's own tensors (``values`` None:
-    every value 1), and its carry pass, on the current stream.  ``edges``
-    holds the rows at the share edges, or with ``search`` room for them,
-    which a first launch fills; ``carry`` (f32) and ``carry_row`` (int64)
-    are its scratch, an entry a block.  The caller has checked the
-    tensors."""
-    _launch("spmv_csr", rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64),
-            edges.data_ptr(), int(search), colinds.data_ptr(),
-            None if values is None else values.data_ptr(), x.data_ptr(),
-            y.data_ptr(), rowptrs.shape[0] - 1, colinds.shape[0], int(zeroed),
-            carry.data_ptr(), carry_row.data_ptr(), carry_row.shape[0],
-            torch.cuda.current_stream(y.device).cuda_stream)
-
-
-def spmm_csr(rowptrs, edges, search: bool, colinds, values, b, c, carry,
-             carry_row, width: int, lanes: int) -> None:
-    """Launch the CSR-form SpMM kernel in one pass (no column panels),
-    ``C = A @ B`` read from the matrix's own tensors (``values`` None:
-    every value 1), and its carry pass, on the current stream.  ``edges``
-    holds the rows at the share edges, or with ``search`` room for them,
-    which a first launch fills; ``carry`` and ``carry_row`` are its
-    scratch, a row a share; a lane loads ``width`` floats of B at a time
-    and ``lanes`` lanes walk a row.  The caller has checked the tensors."""
-    _launch("spmm_csr", rowptrs.data_ptr(), int(rowptrs.dtype == torch.int64),
-            edges.data_ptr(), int(search), colinds.data_ptr(),
-            None if values is None else values.data_ptr(), b.data_ptr(),
-            b.stride(0), c.data_ptr(), c.shape[1], rowptrs.shape[0] - 1,
-            colinds.shape[0], carry.data_ptr(), carry_row.data_ptr(), width,
-            lanes, 0, None, None, torch.cuda.current_stream(c.device).cuda_stream)
 
 
 def spmv_bucket_occupancy() -> tuple:

@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from csr_tpu_torch import structure
+from csr_tpu_torch import _forms, structure
 from csr_tpu_torch.dtypes import COLIND_DTYPE, ptr_dtype
 from csr_tpu_torch.kernels import trace
 from csr_tpu_torch.tracing import count, span
@@ -151,8 +151,9 @@ def _esc_rows(a_vals, a_rps, a_cols, b_rps, b_cols, b_vals,
 def _host_index(csr, i: int) -> np.ndarray:
     """``rowptrs`` (``i`` 0) or ``colinds`` (1) of ``csr`` on the host:
     the kept copy, or the one tensor read back."""
-    if csr._kept_host() is not None:
-        return np.asarray(csr._host[i])
+    host = _forms.forms(csr).get("host")
+    if host is not None:
+        return np.asarray(host[i])
     count("host_reads")
     return (csr.rowptrs, csr.colinds)[i].cpu().numpy()
 

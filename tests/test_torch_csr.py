@@ -22,7 +22,7 @@ from csr_tpu_torch import CSR
 from csr_tpu_torch.kernels import cuda as cuda_k
 from csr_tpu_torch.utils import serialization as ser
 
-from torch_util import Scipy, random_matrix
+from torch_util import Scipy, kept, random_matrix
 from util import assert_spmv_close, tols
 
 PORT_KERNELS = ["scipy", "torch", "cuda"]
@@ -105,7 +105,7 @@ def test_cuda_kernel_caches_layouts(monkeypatch):
     h = cuda_k.to_handle(c)
     assert h.layout is layout
     cuda_k.release_handle(h, drop_cache=True)
-    assert c._mb_layout_cache is None
+    assert kept(c, "layout") is None
 
 
 def test_f64_routes_to_torch_backend():
@@ -121,7 +121,7 @@ def test_f64_routes_to_torch_backend():
         y32 = _port(_matrix()).mult_vec(x)  # f32 matrix, f64 operand
         yt = c.mult_vec_t(np.ones(260))
     assert y.dtype == y32.dtype == yt.dtype == torch.float64
-    assert getattr(c, "_mb_layout_cache", None) is None
+    assert kept(c, "layout") is None
     np.testing.assert_allclose(y.numpy(), a @ x, **tols(np.float64))
     np.testing.assert_allclose(yt.numpy(), a.T @ np.ones(260), **tols(np.float64))
     with jax.enable_x64():
@@ -217,7 +217,7 @@ def test_container_matches_reference():
     assert np.array_equal(c.rowinds().numpy(), np.asarray(r.rowinds()))
     s = c.subset_rows(10, 30)
     rs = r.subset_rows(10, 30)
-    assert (s.to_scipy() != rs.to_scipy()).nnz == 0 and s._host is not None
+    assert (s.to_scipy() != rs.to_scipy()).nnz == 0 and kept(s, "host") is not None
     assert (c.copy().to_scipy() != c.to_scipy()).nnz == 0
     assert c.copy(include_values=False).values is None
     assert (CSR.from_scipy(c.to_scipy()).to_scipy() != c.to_scipy()).nnz == 0

@@ -18,6 +18,7 @@ from csr_tpu_torch.parallel import dist, mb_dist, mb_ring, ring
 from csr_tpu_torch.parallel.partition import make_mesh, partition_rows
 
 from torch_util import (Scipy, assert_product_close, cuda_device,  # noqa: F401
+                        kept,
                         random_matrix)
 from util import assert_spmv_close
 
@@ -619,34 +620,35 @@ def _csr_views(a, offset, ptr_dtype, device, structure_only=False):
     return rp, ci, None if structure_only else v
 
 
-def _spmv_csr_into_nan(rp, ci, v, xd):
-    """The CSR-form SpMV kernel's zeroed path (``spmv_csr``'s launch, with
-    ``csr_shares``' edges) into a y filled with NaN: a row it does not
-    write shows."""
-    from csr_tpu_torch.ops import _cuda
+def _into_nan(launch, operand):
+    """``launch(operand)`` with the f32 tensors it allocates by
+    ``torch.empty`` (its result) filled with NaN first, so that a row the
+    kernel does not write shows."""
+    empty = torch.empty
 
-    y = torch.full((rp.shape[0] - 1,), float("nan"), device=rp.device)
-    slots = spmv.MAX_BLOCKS_PER_SM * spmv._sm_count(y.device)
-    scratch = torch.empty(2 * slots, dtype=torch.int64, device=y.device)
-    _cuda.spmv_csr(rp, spmv.csr_shares(rp, ci.shape[0])[0], False, ci, v, xd, y,
-                   True, scratch[slots:], scratch[:slots])
-    return y
+    def nan_empty(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.dtype == torch.float32 else t
+
+    torch.empty = nan_empty
+    try:
+        return launch(operand)
+    finally:
+        torch.empty = empty
+
+
+def _spmv_csr_into_nan(rp, ci, v, xd):
+    """The CSR-form SpMV kernel's zeroed path (``spmv_csr_launch``, with
+    ``csr_shares``' edges) into a y filled with NaN."""
+    edges = spmv.csr_shares(rp, ci.shape[0])[0]
+    return _into_nan(spmv.spmv_csr_launch(rp, ci, v, edges, xd), xd)
 
 
 def _spmm_csr_into_nan(rp, ci, v, bd):
-    """The CSR-form SpMM kernel (``spmm_csr``'s launch, ``csr_plan``'s lanes
+    """The CSR-form SpMM kernel (``spmm_csr_launch``, ``csr_plan``'s lanes
     and load width) into a C filled with NaN."""
-    from csr_tpu_torch.ops import _cuda
-
-    nrows, nnz, n = rp.shape[0] - 1, ci.shape[0], bd.shape[1]
-    c = torch.full((nrows, n), float("nan"), device=bd.device)
-    shares = spmv.n_shares(nrows, nnz, spmm.CSR_TILE)
-    width, lanes = spmm.csr_plan(n, bd.stride(0), bd.data_ptr() & -bd.data_ptr())
-    _cuda.spmm_csr(rp, spmv.csr_shares(rp, nnz, spmm.CSR_TILE)[0], False, ci, v,
-                   bd, c, torch.empty(shares, n, device=bd.device),
-                   torch.empty(shares, dtype=torch.int32, device=bd.device),
-                   width, lanes)
-    return c
+    edges = spmv.csr_shares(rp, ci.shape[0], spmm.CSR_TILE)[0]
+    return _into_nan(spmm.spmm_csr_launch(rp, ci, v, edges, bd), bd)
 
 
 def _long_row_matrix(seed):
@@ -756,10 +758,9 @@ def test_csr_routed_mult_vec_is_one_launch_on_card(cuda_device):
         assert (spmv.csr_launches, spmv.launches) == (before[0] + 2, before[1])
         c.mult_vec_t(torch.from_numpy(xt).to(cuda_device))
     torch.cuda.synchronize()
-    for attr in ("_mb_layout_cache", "_mb_layout_t_cache", "_mb_large_cache",
-                 "_mb_large_t_cache"):
-        assert getattr(c, attr, None) is None, attr
-    assert c._csr_t_cache[3][0].device.type == "cuda"
+    for form in ("layout", "layout_t", "large", "large_t"):
+        assert kept(c, form) is None, form
+    assert kept(c, "csr_t")[0].device.type == "cuda"
     # assert_spmv_close's bound, on the sparse matrices (it densifies)
     spmv_share(y, a.astype(np.float64) @ x, a, x)
     at = a.T.tocsr()
@@ -835,8 +836,8 @@ def test_csr_routed_mult_dense_is_one_launch_on_card(cuda_device):
         Y = torch.func.vmap(lambda v: c.mult_vec(v))(torch.from_numpy(X).to(cuda_device))
         counts = launch_counts()
     assert {k: m for k, m in counts.items() if m} == {"spmm_csr": 2}, counts
-    for attr in ("_mb_layout_cache", "_mb_large_cache"):
-        assert getattr(c, attr, None) is None, attr
+    for form in ("layout", "large"):
+        assert kept(c, form) is None, form
     assert_product_close(d.cpu().numpy(), a.astype(np.float64) @ b)
     for k in range(3):
         spmv_share(Y[k], a.astype(np.float64) @ X[k], a, X[k])
@@ -948,6 +949,34 @@ def test_plan_hit_is_the_general_path_on_card(route, cuda_device):
     assert len(ptrs) == 4
     for h in hits:
         assert torch.equal(h, general)
+
+
+@pytest.mark.parametrize("perturb", ["values.mul_", "rebind values", "fill_values"])
+@pytest.mark.parametrize("kind", ["ratings", "hypersparse"])
+def test_a_stale_plan_frees_its_forms_on_card(kind, perturb, cuda_device):
+    """Once the values are edited in place or rebound, one ``mult_vec_t``
+    (which rebuilds its own forms) frees ``mult_vec``'s plan with the
+    form it read and the values it was made from: the card's allocated
+    memory returns to its level before ``mult_vec`` first ran."""
+    c = _plan_matrix(kind, cuda_device)
+    x = torch.rand(c.ncols, device=cuda_device)
+    xt = torch.rand(c.nrows, device=cuda_device)
+    with use_kernel("cuda"):
+        c.mult_vec_t(xt)
+        level = torch.cuda.memory_allocated(cuda_device)
+        c.mult_vec(x)
+        assert kept(c, ("plan", "mult_vec")) is not None
+        assert torch.cuda.memory_allocated(cuda_device) > level
+        if perturb == "values.mul_":
+            c.values.mul_(2)
+        elif perturb == "rebind values":
+            c.values = c.values * 1.5
+        else:
+            c.fill_values(0.5)
+        c.mult_vec_t(xt)
+    torch.cuda.synchronize()
+    assert kept(c, ("plan", "mult_vec")) is None
+    assert torch.cuda.memory_allocated(cuda_device) == level
 
 
 def _panel_matrix(case):

@@ -21,7 +21,7 @@ from csr_tpu_torch import CSR, kernels
 from csr_tpu_torch.kernels import cuda as cuda_k
 from csr_tpu_torch.ops import microblock, spmv
 
-from torch_util import Scipy, port_chooser
+from torch_util import Scipy, kept, port_chooser
 from util import assert_spmv_close
 
 
@@ -146,7 +146,7 @@ def test_large_layouts_dropped_with_the_cache(monkeypatch):
     c = CSR.from_scipy(m, device="cpu")
     with kernels.use_kernel("cuda"):
         c.mult_vec(np.ones(640, np.float32))
-    assert c._mb_large_cache is not None
+    assert kept(c, "large") is not None
     h = cuda_k.to_handle(c)
     cuda_k.release_handle(h, drop_cache=True)
-    assert c._mb_large_cache is None and c._mb_large_t_cache is None
+    assert kept(c, "large") is None and kept(c, "large_t") is None

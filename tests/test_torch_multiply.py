@@ -25,7 +25,7 @@ from csr_tpu_torch.kernels import cuda as cuda_k
 from csr_tpu_torch.ops import spgemm, spmm
 from csr_tpu_torch.utils.serialization import from_arrays
 
-from torch_util import assert_product_close, random_matrix
+from torch_util import assert_product_close, kept, random_matrix
 from util import tols
 
 # the densify threshold that sends each test matrix to one route
@@ -165,7 +165,7 @@ def test_f64_routes_to_torch_backend(routes):
         p = c.multiply(CSR.from_scipy(m))
     assert d.dtype == d32.dtype == p.values.dtype == torch.float64
     assert routes == [("mult_dense", "torch")] * 2 + [("spgemm", "torch")]
-    assert getattr(c, "_mb_layout_cache", None) is None
+    assert kept(c, "layout") is None
     np.testing.assert_allclose(d.numpy(), a @ b64, **tols(np.float64))
     np.testing.assert_allclose(_dense(p), (a @ m).toarray(), **tols(np.float64))
     with jax.enable_x64():

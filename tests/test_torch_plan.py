@@ -18,7 +18,7 @@ from csr_tpu_torch import CSR, tracing
 from csr_tpu_torch.kernels import cuda as cuda_k
 from csr_tpu_torch.ops import spgemm
 
-from torch_util import random_matrix
+from torch_util import kept, random_matrix
 
 #: route -> (method, B's width or None for a vector, the route's settings:
 #: SpMV's CSR-form crossover, SpMM's)
@@ -176,6 +176,11 @@ def test_a_hit_is_the_general_path(route, perturb, monkeypatch):
     np.testing.assert_allclose(general.double().numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _planned(c) -> set:
+    """The methods whose product plans ``c`` keeps."""
+    return {k[1] for k in kept(c) if k[0] == "plan"}
+
+
 def _matrix_now(c, method, v):
     """``method`` of ``c`` as it is now, in f64 by scipy."""
     a = c.to_scipy().astype(np.float64)
@@ -199,7 +204,7 @@ def test_no_plan_under_vmap(method):
         rec = tracing.enable()
         for _ in range(2):
             ys = torch.func.vmap(lambda x: getattr(c, method)(x))(batch)
-        assert getattr(c, "_plans", None) is None
+        assert _planned(c) == set()
         y = getattr(c, method)(v)  # builds one
         again = torch.func.vmap(lambda x: getattr(c, method)(x))(batch)
         assert _plan_counters(rec) == {"plan.miss.transform": 3, "plan.miss.key": 1,
@@ -223,9 +228,8 @@ def test_no_plan_for_row_shards(method, monkeypatch):
         sharded = _matrix()
         got += [getattr(sharded, method)(v) for _ in range(2)]
         assert _plan_counters(rec) == {"plan.miss.key": 3}
-        assert getattr(sharded, "_plans", None) is None
-        assert all(getattr(s, "_plans", None) is None
-                   for s in sharded._shard_rows(cuda_k.max_nnz))
+        assert _planned(sharded) == set()
+        assert all(_planned(s) == set() for s in sharded._shard_rows(cuda_k.max_nnz))
     for y in got:
         np.testing.assert_allclose(y.numpy(), _matrix_now(c, method, v),
                                    rtol=1e-5, atol=1e-5)
@@ -282,15 +286,61 @@ def test_a_hit_emits_the_events_and_holds_no_operand(route, monkeypatch):
     assert [r() for r in refs] == [None] * 3
 
 
+#: route -> the form its plan's launch reads (of the transpose's CSR
+#: tensors, a tuple, the test follows the columns)
+FORM = {"microblock-spmm-n50": "layout", "microblock-spmm-n52": "layout",
+        "csr-spmm": "spmm_edges", "csr-spmv": "spmv_edges", "csr-spmv-t": "csr_t",
+        "microblock-spmv": "layout", "microblock-spmv-t": "layout_t"}
+#: method -> another one, whose call follows the perturbation
+OTHER = {"mult_vec": "mult_vec_t", "mult_vec_t": "mult_vec", "mult_dense": "mult_vec"}
+#: perturbations that leave a plan stale -> whether they rebind the values
+STALE = {"values.mul_": False, "rebind values": True, "fill_values": True}
+
+
+def _make_stale(c, perturb):
+    if perturb == "values.mul_":
+        c.values.mul_(2)
+    elif perturb == "rebind values":
+        c.values = c.values * 1.5
+    else:
+        c.fill_values(0.5)
+
+
+@pytest.mark.parametrize("route,perturb", [(r, p) for r in ROUTES for p in STALE])
+def test_a_stale_plan_frees_its_forms(route, perturb, monkeypatch):
+    """Once the values are edited in place or rebound, one call of another
+    method frees the plan with the form it read and the values it was made
+    from: a plan never outlives them."""
+    method, n = _route(monkeypatch, route)
+    c = _matrix()
+    with kernels.use_kernel("cuda"):
+        getattr(c, method)(_operand(c, method, n))
+        assert _planned(c) == {method}
+        form = kept(c, FORM[route])
+        refs = [weakref.ref(form[1] if isinstance(form, tuple) else form)]  # csr_t's columns
+        del form
+        if STALE[perturb]:
+            refs.append(weakref.ref(c.values))
+        _make_stale(c, perturb)
+        other = OTHER[method]
+        y = getattr(c, other)(_operand(c, other, None, seed=1))
+    gc.collect()
+    assert [r() for r in refs] == [None] * len(refs)
+    assert _planned(c) == {other}
+    np.testing.assert_allclose(y.double().numpy(),
+                               _matrix_now(c, other, _operand(c, other, None, seed=1)),
+                               rtol=1e-5, atol=1e-5)
+
+
 def test_drop_cache_drops_the_plans():
     c = _matrix()
     v = torch.ones(c.ncols)
     k = kernels.get_kernel("cuda")
     with kernels.use_kernel("cuda"):
         c.mult_vec(v)
-        assert set(c._plans) == {"mult_vec"}
+        assert _planned(c) == {"mult_vec"}
         k.release_handle(k.to_handle(c), drop_cache=True)
-    assert c._plans is None
+    assert kept(c) == {}
 
 
 def test_spgemm_keeps_no_plan(monkeypatch):
@@ -298,7 +348,7 @@ def test_spgemm_keeps_no_plan(monkeypatch):
     c = _matrix()
     with kernels.use_kernel("cuda"):
         c.multiply(c, transpose=True)
-    assert getattr(c, "_plans", None) is None
+    assert _planned(c) == set()
 
 
 @pytest.fixture
@@ -321,8 +371,6 @@ def fake_entries(monkeypatch):
         name, entry(name)))
     monkeypatch.setattr(_cuda, "call_on", lambda index, kernel, *args: _cuda.call(kernel, *args))
     monkeypatch.setattr(_cuda, "stream", lambda index: 77)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: type("S", (), {"cuda_stream": 77}))
     monkeypatch.setattr(spmv, "_sm_count", lambda dev: 2)
     return calls
 
@@ -331,9 +379,9 @@ def fake_entries(monkeypatch):
 def test_launches_pass_their_entries_arguments(launch, fake_entries):
     """Each wrapper's bound launch hands its kernel entry as many
     arguments as ``ops/_cuda.py:ENTRIES`` declares, of their types, with
-    the matrix's pointers where they belong; the CSR-form ones the same
-    arguments as ``_cuda.spmv_csr`` / ``_cuda.spmm_csr`` give for the same
-    tensors, the per-call ones aside."""
+    the matrix's side where ``ENTRIES`` puts it: its pointers (the CSR
+    form's row pointers, edges, columns and values), sizes and, for the
+    CSR-form SpMM, ``csr_plan``'s load width and lanes and no panels."""
     import ctypes
 
     from csr_tpu_torch.ops import _cuda, microblock as mb, spmm, spmv
@@ -348,28 +396,21 @@ def test_launches_pass_their_entries_arguments(launch, fake_entries):
                else spmm.spmm_launch(layout, v))
         name = "spmv_microblock" if launch == "spmv" else "spmm_microblock"
         want = {0: layout.vals.data_ptr(), 1: layout.meta.data_ptr(), 2: layout.rbcb.data_ptr()}
-    elif launch == "spmv_csr":
-        edges = spmv.csr_shares(rp, c.nnz)[0]
-        run, name = spmv.spmv_csr_launch(rp, ci, vs, edges, v), "spmv_csr"
-        y = torch.empty(c.nrows)
-        slots = spmv.MAX_BLOCKS_PER_SM * 2
-        scratch = torch.empty(2 * slots, dtype=torch.int64)
-        _cuda.spmv_csr(rp, edges, False, ci, vs, v, y, True, scratch[slots:],
-                       scratch[:slots])
-        want = dict(enumerate(fake_entries.pop()[1]))
-        for i in (6, 7, 11, 12):  # x, y and the scratch: per call
-            del want[i]
-    else:
-        edges = spmv.csr_shares(rp, c.nnz, spmm.CSR_TILE)[0]
-        run, name = spmm.spmm_csr_launch(rp, ci, vs, edges, v), "spmm_csr"
-        out = torch.empty(c.nrows, n)
-        shares = spmv.n_shares(c.nrows, c.nnz, spmm.CSR_TILE)
-        width, lanes = spmm.csr_plan(n, v.stride(0), v.data_ptr() & -v.data_ptr())
-        _cuda.spmm_csr(rp, edges, False, ci, vs, v, out, torch.empty(shares, n),
-                       torch.empty(shares, dtype=torch.int32), width, lanes)
-        want = dict(enumerate(fake_entries.pop()[1]))
-        for i in (6, 8, 12, 13):  # B, C and the scratch: per call
-            del want[i]
+    else:  # rowptrs, ptr64, edges, search, colinds, values: both kernels
+        tile = spmv.CSR_TILE if launch == "spmv_csr" else spmm.CSR_TILE
+        edges = spmv.csr_shares(rp, c.nnz, tile)[0]
+        want = {0: rp.data_ptr(), 1: int(rp.dtype == torch.int64), 2: edges.data_ptr(),
+                3: 0, 4: ci.data_ptr(), 5: vs.data_ptr()}
+        if launch == "spmv_csr":
+            run, name = spmv.spmv_csr_launch(rp, ci, vs, edges, v), "spmv_csr"
+            # nrows, nnz, zeroed; the blocks' slots (two SMs)
+            want.update({8: c.nrows, 9: c.nnz, 10: 1, 13: spmv.MAX_BLOCKS_PER_SM * 2})
+        else:
+            run, name = spmm.spmm_csr_launch(rp, ci, vs, edges, v), "spmm_csr"
+            width, lanes = spmm.csr_plan(n, v.stride(0), v.data_ptr() & -v.data_ptr())
+            # ldb, n, nrows, nnz; width, lanes; one pass (no panels)
+            want.update({7: v.stride(0), 9: n, 10: c.nrows, 11: c.nnz, 14: width,
+                         15: lanes, 16: 0, 17: None, 18: None})
     out = run(v)
     (got_name, args), = fake_entries
     assert got_name == name and len(args) == len(_cuda.ENTRIES[name])
@@ -423,4 +464,4 @@ def test_threads_share_a_matrix_and_its_plans():
     finally:
         sys.setswitchinterval(old)
     assert bad == []
-    assert set(c._plans) == {"mult_vec", "mult_vec_t", "mult_dense"}
+    assert _planned(c) == {"mult_vec", "mult_vec_t", "mult_dense"}

@@ -26,7 +26,7 @@ from csr_tpu_torch import CSR
 from csr_tpu_torch.kernels import cuda as cuda_k, torch as torch_k
 from csr_tpu_torch.ops import _cuda, microblock as mb, spmm, spmv
 
-from torch_util import Scipy, assert_product_close, power_law
+from torch_util import Scipy, assert_product_close, kept, power_law
 from util import assert_spmv_close
 
 SHAPE = (256, 1 << 16)
@@ -176,8 +176,8 @@ def test_routed_mult_dense_matches_pallas(case, structure_only, pallas_results,
         assert d.dtype == torch.float32 and d.shape == (a.shape[0], n)
         assert_product_close(d.numpy(), want)
         assert_product_close(d.numpy(), ref.astype(np.float64) @ b)
-    for attr in ("_mb_layout_cache", "_mb_large_cache"):
-        assert getattr(c, attr, None) is None, attr
+    for form in ("layout", "large"):
+        assert kept(c, form) is None, form
 
 
 def flagship_like():
@@ -208,7 +208,7 @@ def test_route_picks_spmm_csr(monkeypatch):
     with kernels.use_kernel("cuda"):
         d = fresh.mult_dense(b)
     assert_product_close(d.numpy(), CASES["hypersparse"].astype(np.float64) @ b)
-    assert getattr(fresh, "_mb_large_cache", None) is None
+    assert kept(fresh, "large") is None
 
 
 def test_large_route_is_spmm_a_panel(monkeypatch, routes):
@@ -441,11 +441,11 @@ def test_cpu_matrix_copies_the_callers_arrays():
     d = CSR(m.shape[0], m.shape[1], m.nnz, m.indptr, m.indices.astype(np.int64),
             m.data, device="cpu")
     for csr in (c, d):
-        assert csr._kept_host() is not None
+        assert kept(csr, "host") is not None
         csr.values.mul_(3)
         assert np.array_equal(m.data, data)
     d.colinds.copy_(d.colinds.flip(0))  # an int32 tensor of int64 host arrays
-    assert d._kept_host() is None
+    assert kept(d, "host") is None
     assert np.array_equal(d.host_arrays()[1], m.indices[::-1])
     assert np.allclose(c.to_scipy().data, 3 * data)
 
@@ -460,16 +460,19 @@ def test_shards_and_statistic_follow_an_edit(monkeypatch):
     x = np.random.default_rng(82).uniform(-1, 1, a.shape[1]).astype(np.float32)
     with kernels.use_kernel("cuda"):
         c.mult_vec(x)
-        shards = c._shard_cache[4]
+        shards = kept(c, ("shards", 400))
         cuda_k._layout_bytes_per_entry(c, False)
         c.values.mul_(-1)
         y = c.mult_vec(x)
-    assert c._shard_cache[4] is not shards and len(shards) > 1
+    assert kept(c, ("shards", 400)) is not shards and len(shards) > 1
     assert_spmv_close(y.numpy(), -(a.astype(np.float64) @ x), Scipy(a), x)
-    stats = c._mb_stat_cache[3]
-    c.colinds.copy_(c.colinds // 256)  # every entry in the first window
+    stat = ("stat", False, cuda_k._LARGE_WINDOWS)
     cuda_k._layout_bytes_per_entry(c, False)
-    assert c._mb_stat_cache[3] is not stats
+    assert kept(c, stat) is not None
+    c.colinds.copy_(c.colinds // 256)  # every entry in the first window
+    assert kept(c, stat) is None
+    cuda_k._layout_bytes_per_entry(c, False)
+    assert kept(c, stat) == _microrows(c, False)
     assert _microrows(c, False) == mb.estimate_microrows(
         a.indptr, a.indices // 256, 256, a.shape[1])
 
@@ -694,7 +697,7 @@ def test_no_panels_off_a_card(monkeypatch):
     c = _port(a)
     assert cuda_k._spmm_panels(c, False, 50) is None
     assert cuda_k._spmm_panels(c, True, 50) is None
-    assert getattr(c, "_spmm_panels_cache", None) is None
+    assert [k for k in kept(c) if k[0] == "spmm_panels"] == []
 
 
 @pytest.mark.parametrize("k", [2, 3, 5, 7])

@@ -26,7 +26,7 @@ from csr_tpu_torch import CSR
 from csr_tpu_torch.kernels import cuda as cuda_k
 from csr_tpu_torch.ops import _cuda, microblock as mb, spmv
 
-from torch_util import Scipy, power_law
+from torch_util import Scipy, kept, power_law
 from util import assert_spmv_close
 
 SHAPE = (256, 1 << 16)
@@ -96,9 +96,8 @@ def test_routed_products_match_pallas(case, ptr_dtype, pallas_results,
     assert_spmv_close(y.numpy(), a.astype(np.float64) @ x, Scipy(a), x)
     assert_spmv_close(yt.numpy(), a.T.astype(np.float64) @ xt, at, xt)
     # the CSR route builds no micro-block layout either way
-    for attr in ("_mb_layout_cache", "_mb_layout_t_cache", "_mb_large_cache",
-                 "_mb_large_t_cache"):
-        assert getattr(c, attr, None) is None, attr
+    for form in ("layout", "layout_t", "large", "large_t"):
+        assert kept(c, form) is None, form
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -324,7 +323,7 @@ def test_transpose_form_cached():
         with kernels.use_kernel("cuda"):
             for _ in range(2):
                 c.mult_vec(np.ones(a.shape[1], np.float32))
-            assert getattr(c, "_csr_t_cache", None) is None
+            assert kept(c, "csr_t") is None
             for _ in range(2):
                 c.mult_vec_t(np.ones(a.shape[0], np.float32))
     finally:
@@ -338,7 +337,7 @@ def test_transpose_form_cached():
     assert np.array_equal(rp.numpy(), at.indptr) and np.array_equal(ci.numpy(), at.indices)
     h = cuda_k.to_handle(c)
     cuda_k.release_handle(h, drop_cache=True)
-    assert c._csr_t_cache is None and c._mb_stat_cache is None
+    assert kept(c, "csr_t") is None and kept(c) == {}
 
 
 def test_vmap_on_the_csr_route_is_one_spmm_csr(monkeypatch):
@@ -368,9 +367,8 @@ def test_vmap_on_the_csr_route_is_one_spmm_csr(monkeypatch):
     assert edges[1] is cuda_k._spmm_edges(c, True)
     assert torch.equal(edges[1], spmv.csr_shares(cuda_k._cached_csr_t(c)[0], a.nnz,
                                                  spmm_op.CSR_TILE)[0])
-    for attr in ("_mb_layout_cache", "_mb_layout_t_cache", "_mb_large_cache",
-                 "_mb_large_t_cache"):
-        assert getattr(c, attr, None) is None, attr
+    for form in ("layout", "layout_t", "large", "large_t"):
+        assert kept(c, form) is None, form
     at = a.T.tocsr()
     for k in range(3):
         assert_spmv_close(Y[k].numpy(), a.astype(np.float64) @ X[k].numpy(),

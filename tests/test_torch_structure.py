@@ -18,7 +18,7 @@ import csr_tpu
 from csr_tpu.test_utils import csrs, sparse_matrices
 from csr_tpu_torch import CSR, constructors, kernels, structure
 
-from torch_util import port_of, random_matrix
+from torch_util import kept, port_of, random_matrix
 from util import to_dense
 
 FEW = settings(max_examples=15, deadline=None)
@@ -124,7 +124,7 @@ def test_sort_rows_matches_reference(case):
     rowptrs = c.rowptrs
     ref.sort_rows()
     c.sort_rows()
-    assert c.rowptrs is rowptrs and c._host is None
+    assert c.rowptrs is rowptrs and kept(c, "host") is None
     np.testing.assert_array_equal(c.colinds.numpy(), np.asarray(ref.colinds))
     np.testing.assert_allclose(to_dense(c), dense, rtol=1e-6)
     if case == "duplicates":  # repeated coordinates keep their order
@@ -264,7 +264,7 @@ def test_fill_values(data):
     assert c.values.shape == (c.nnz,) and bool((c.values == torch.tensor(x, dtype=dtype)).all())
     with pytest.deprecated_call():
         c.drop_values()
-    assert c.values is None and c._host is None
+    assert c.values is None and kept(c, "host") is None
 
 
 # -- conversions (tests/test_convert.py) ------------------------------------

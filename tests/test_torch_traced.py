@@ -28,6 +28,7 @@ from csr_tpu_torch import CSR
 from csr_tpu_torch.kernels import get_kernel, use_kernel
 from csr_tpu_torch.ops import spmm as spmm_op, spmv as spmv_op
 
+from torch_util import kept
 from util import dense_tols
 
 
@@ -50,7 +51,7 @@ def test_pytree_round_trip(mat):
     """Leaves ``(rowptrs, colinds, values)``, context ``(nrows, ncols)``;
     unflatten drops the host copy and gives the same matrix."""
     _, csr, dense = mat
-    assert csr._host is not None
+    assert kept(csr, "host") is not None
     leaves, spec = pytree.tree_flatten(csr)
     assert len(leaves) == 3
     assert leaves[0] is csr.rowptrs and leaves[1] is csr.colinds
@@ -58,7 +59,7 @@ def test_pytree_round_trip(mat):
     out = pytree.tree_unflatten(leaves, spec)
     assert isinstance(out, CSR) and out is not csr
     assert (out.nrows, out.ncols, out.nnz) == (50, 40, csr.nnz)
-    assert out._host is None
+    assert kept(out, "host") is None
     np.testing.assert_array_equal(out.to_scipy().toarray(), dense)
     x = torch.linspace(-1, 1, 40)
     torch.testing.assert_close(out.mult_vec(x), csr.mult_vec(x))

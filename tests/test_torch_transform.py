@@ -17,7 +17,7 @@ from csr_tpu.test_utils import csrs
 from csr_tpu_torch import CSR, kernels, transform
 from csr_tpu_torch.kernels import cuda as cuda_k
 
-from torch_util import port_of
+from torch_util import kept, port_of
 from util import assert_spmv_close, to_dense, tols
 
 FEW = settings(max_examples=15, deadline=None)
@@ -164,7 +164,7 @@ def test_inplace_ops_rebuild_cuda_layouts(op, monkeypatch):
                 c.fill_values(0.5)
             else:
                 c.values = c.values * 3
-            assert c._host is None
+            assert kept(c, "host") is None
             assert any(n is not o for n, o in zip((c.rowptrs, c.colinds, c.values),
                                                   before))
             seen.clear()
@@ -172,8 +172,8 @@ def test_inplace_ops_rebuild_cuda_layouts(op, monkeypatch):
     finally:
         kernels._listeners.pop()
     assert seen.count("layout-build") == 1 and seen.count("layout-build-t") == 1
-    assert cuda_k._cached_layout(c) is c._mb_layout_cache[3]
-    assert c._mb_layout_cache[2] is c.values
+    assert cuda_k._cached_layout(c) is kept(c, "layout")
+    assert kept(c).values is c.values
     m = c.to_scipy()
     assert_spmv_close(y.numpy(), m.astype(np.float64) @ x, c, x)
     mt = m.T.tocsr()

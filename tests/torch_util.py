@@ -15,6 +15,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def kept(c, key=None):
+    """What matrix ``c`` keeps while its tensors stand as they are
+    (``csr_tpu_torch/_forms.py``): form ``key`` (``"layout"``,
+    ``("plan", "mult_vec")``, ``"host"``, ...), or None where it has none;
+    with no key, the whole set (a dict, empty where nothing is kept; a
+    tuple key's first member names its form, ``k[0] == "plan"``)."""
+    f = c._forms
+    if f is None or not f.fresh(c):
+        f = {}
+    return f if key is None else f.get(key)
+
+
 def port_chooser(monkeypatch):
     """Make ``csr_tpu.ops.microblock.choose_layout`` the port's chooser
     for the rest of one test: the JAX package derives its default (window,
