@@ -8,11 +8,16 @@ forms fit :data:`max_dense_bytes`; past it a product runs here, with no
 dense array at all:
 
 1. **expand**: every product term ``A[i, k] * B[k, j]`` becomes one
-   int64 key ``i << 32 | j`` and one value.  The number of terms of
-   each row of A is known on the host before (the chunk plan), so
+   key and one value.  Where the chunk's output (its rows times the
+   output's columns) holds at most :data:`KEY32_CELLS` cells, the key is
+   the int32 ``i * ncols + j``, ``i`` the row within the chunk; past
+   that it is the int64 ``i << 32 | j``.  The number of terms of each
+   row of A is known on the host before (the chunk plan), so
    ``torch.repeat_interleave(..., output_size=n)`` reads nothing back;
 2. **sort**: ``torch.sort`` of the keys, the values gathered by its
-   permutation, so that the terms of one coordinate are adjacent;
+   permutation, so that the terms of one coordinate are adjacent.  The
+   card's radix sort takes every bit of the key's type: four passes of
+   an int32 key, eight of an int64 one;
 3. **compress**: ``torch.unique_consecutive`` of the sorted keys (each
    term's output entry), ``index_add_`` of the values, and a binary
    search of the keys' rows for the row pointers.
@@ -45,15 +50,19 @@ from csr_tpu_torch.tracing import count, span
 max_dense_bytes = 2**29
 
 #: product terms expanded at once; a chunk holds its keys, their sorted
-#: copy, the permutation, values and indices, about 65 B a term at its
-#: peak as measured (13.1 GiB at the 217,250,243 terms of the block
-#: below in one chunk).  The
-#: fastest of 2^24, 2^26 and 2^28 for the item-item block of chip_smoke
-#: phase 17 on an NVIDIA H100 80GB HBM3 at 700 W: 59.1-61.1 ms a product
-#: in one chunk, 13.1 GiB allocated on the card at the peak, against
-#: 60.0-61.8 ms (4 chunks, 6.0 GiB) and 66.2-68.2 ms (14 chunks, 3.8 GiB)
-#: (PERF.md).
+#: copy, the permutation, values and indices: 9.42 GiB allocated on the
+#: card at the peak for the 217,250,243 terms of the block below in one
+#: chunk, about 47 B a term with int32 keys (11.86 GiB, about 59 B a
+#: term, with int64 keys).  The fastest of 2^24, 2^26 and 2^28 for the
+#: item-item block of chip_smoke phase 17 on an NVIDIA H100 80GB HBM3 at
+#: 700 W, int32 keys: 45.6-46.3 ms a product in one chunk, against
+#: 46.5-46.7 ms (4 chunks, 3.99 GiB) and 60.3-76.8 ms (14 chunks,
+#: 2.57 GiB) (PERF.md).
 esc_chunk_entries = 2**28
+
+#: the most output cells (rows times columns) a chunk may span for its
+#: sort keys, local to the chunk, to be int32
+KEY32_CELLS = 2**31 - 1
 
 
 def dense_fits(a_nrows: int, b_nrows: int, b_ncols: int, n_out: int,
@@ -94,10 +103,19 @@ def _chunk_splits(a_rps_host: np.ndarray, b_row_nnz_host: np.ndarray,
     return _splits(_term_cum(a_rps_host, b_row_nnz_host, a_cols_host))
 
 
-def _expand(a_rids, a_cols, a_vals, b_rps, b_cols, b_vals, n: int, out_dtype):
-    """The ``n`` product terms of A's entries (row ids ``a_rids``, columns
-    ``a_cols``) with B's rows, sorted: returns ``(keys, values)``, keys
-    ``row << 32 | col`` ascending."""
+def _key_bits(nrows: int, ncols: int) -> int:
+    """Width of the sort key of a chunk of ``nrows`` rows of ``ncols``
+    output columns: 32 where every coordinate ``row * ncols + col`` of
+    the chunk fits int32, else 64."""
+    return 32 if nrows * ncols <= KEY32_CELLS else 64
+
+
+def _expand(a_rids, a_cols, a_vals, b_rps, b_cols, b_vals, n: int, out_dtype,
+            ncols: int, key_bits: int):
+    """The ``n`` product terms of A's entries (row ids ``a_rids``, int32
+    from 0, columns ``a_cols``) with B's rows, sorted: returns ``(keys,
+    values)``, keys ascending, int32 ``row * ncols + col`` where
+    ``key_bits`` is 32, int64 ``row << 32 | col`` where it is 64."""
     dev = a_cols.device
     b_rps = b_rps.to(torch.int64)
     a_cols = a_cols.to(torch.int64)
@@ -108,44 +126,64 @@ def _expand(a_rids, a_cols, a_vals, b_rps, b_cols, b_vals, n: int, out_dtype):
     # term t of entry e reads B's entry starts[e] + (t - first term of e)
     shift = starts - (torch.cumsum(counts, 0) - counts)
     src = torch.arange(n, device=dev) + shift[e]
-    key = (a_rids.to(torch.int64)[e] << 32) | b_cols[src].to(torch.int64)
+    if key_bits == 32:
+        key = (a_rids * ncols)[e]
+        key += b_cols[src]
+    else:
+        key = (a_rids.to(torch.int64)[e] << 32) | b_cols[src].to(torch.int64)
     vals = a_vals.to(out_dtype)[e] * b_vals.to(out_dtype)[src]
     del e, src
     key, perm = torch.sort(key)
     return key, vals[perm]
 
 
-def _compress(key, vals, nrows: int):
-    """Sum the values of equal (adjacent) keys: ``(rowptrs, colinds,
-    values, nnz)`` of the output, reading its entry count back once."""
+def _compress(key, vals, nrows: int, ncols: int):
+    """Sum the values of equal (adjacent) keys, int32 or int64 as
+    :func:`_expand` made them: ``(rowptrs, colinds, values, nnz)`` of the
+    output, reading its entry count back once."""
     ukey, seg = torch.unique_consecutive(key, return_inverse=True)
     count("host_reads")  # the unique keys' count
     nnz = ukey.shape[0]
     out_vals = torch.zeros(nnz, dtype=vals.dtype, device=vals.device)
     out_vals.index_add_(0, seg, vals)
-    rps = structure._rowptrs_from_rows(ukey >> 32, nrows, ptr_dtype(nnz))
-    return rps, (ukey & 0xFFFFFFFF).to(COLIND_DTYPE), out_vals, nnz
+    if key.dtype == torch.int32:
+        rows = ukey // ncols
+        cols = ukey - rows * ncols
+    else:
+        rows, cols = ukey >> 32, ukey & 0xFFFFFFFF
+    rps = structure._rowptrs_from_rows(rows, nrows, ptr_dtype(nnz))
+    return rps, cols.to(COLIND_DTYPE), out_vals, nnz
+
+
+def _empty(nrows: int, ncols: int, dtype, device):
+    """An ``nrows x ncols`` product with no entries."""
+    from csr_tpu_torch import CSR
+
+    return CSR(nrows, ncols, 0,
+               torch.zeros(nrows + 1, dtype=torch.int32, device=device),
+               torch.zeros(0, dtype=COLIND_DTYPE, device=device),
+               torch.zeros(0, dtype=dtype, device=device), _cast=False)
 
 
 def _esc_rows(a_vals, a_rps, a_cols, b_rps, b_cols, b_vals,
               nrows: int, ncols_out: int, out_dtype, n_terms: int):
     """ESC product of a row chunk of A (``nrows`` rows, ``n_terms``
-    product terms, as the chunk plan counted them) with all of B."""
+    product terms, as the chunk plan counted them) with all of B: returns
+    ``(C, key_bits)``, the chunk's key width counted as ``esc.keys32`` or
+    ``esc.keys64``."""
     from csr_tpu_torch import CSR
 
-    dev = a_cols.device
+    key_bits = _key_bits(nrows, ncols_out)
+    count(f"esc.keys{key_bits}")
     if n_terms == 0:
-        return CSR(nrows, ncols_out, 0,
-                   torch.zeros(nrows + 1, dtype=torch.int32, device=dev),
-                   torch.zeros(0, dtype=COLIND_DTYPE, device=dev),
-                   torch.zeros(0, dtype=out_dtype, device=dev), _cast=False)
+        return _empty(nrows, ncols_out, out_dtype, a_cols.device), key_bits
     with span("csr.esc.expand"):
         a_rids = structure._row_ids(a_rps, nrows, a_cols.shape[0])
         key, vals = _expand(a_rids, a_cols, a_vals, b_rps, b_cols, b_vals,
-                            n_terms, out_dtype)
+                            n_terms, out_dtype, ncols_out, key_bits)
     with span("csr.esc.compress"):
-        rps, cols, vals, nnz = _compress(key, vals, nrows)
-    return CSR(nrows, ncols_out, nnz, rps, cols, vals, _cast=False)
+        rps, cols, vals, nnz = _compress(key, vals, nrows, ncols_out)
+    return CSR(nrows, ncols_out, nnz, rps, cols, vals, _cast=False), key_bits
 
 
 def _host_index(csr, i: int) -> np.ndarray:
@@ -179,19 +217,21 @@ def esc_mult_ab(a, b, out_dtype=None):
         a_rps_h = _host_index(a, 0).astype(np.int64)
         cum = _term_cum(a_rps_h, np.diff(_host_index(b, 0)), _host_index(a, 1))
         splits = _splits(cum)
-    parts = []
+    parts, key_bits = [], 32
     for lo, hi in zip(splits[:-1], splits[1:]):
         s0, s1 = int(a_rps_h[lo]), int(a_rps_h[hi])
-        parts.append(_esc_rows(
+        part, bits = _esc_rows(
             a_vals[s0:s1], a.rowptrs[lo : hi + 1] - s0, a.colinds[s0:s1],
             b.rowptrs, b.colinds, b_vals, hi - lo, b.ncols, out_dtype,
-            int(cum[hi] - cum[lo])))
+            int(cum[hi] - cum[lo]))
+        parts.append(part)
+        key_bits = max(key_bits, bits)
     if not parts:  # no rows
-        c = _esc_rows(a_vals, a.rowptrs, a.colinds, b.rowptrs, b.colinds,
-                      b_vals, a.nrows, b.ncols, out_dtype, 0)
+        c = _empty(a.nrows, b.ncols, out_dtype, a.device)
     else:
         c = parts[0] if len(parts) == 1 else CSR._assemble_shards(parts)
-    trace("esc", terms=int(cum[-1]), chunks=len(parts), nnz=c.nnz)
+    trace("esc", terms=int(cum[-1]), chunks=len(parts), nnz=c.nnz,
+          key_bits=key_bits)
     return c
 
 

@@ -5,8 +5,8 @@ The package's instrumentation: events, spans and counters, one system.
 (``to_handle``, ``release_handle``), the route of each product (an
 event named for the product, ``mult_vec``, ``mult_vec_t``,
 ``mult_dense`` or ``spgemm``, whose ``route`` field names it), each
-layout or transpose built (``layout-build*``) and ESC's terms and chunks
-(``esc``).  Every event goes to the callables in :data:`_listeners`
+layout or transpose built (``layout-build*``) and ESC's terms, chunks
+and key width (``esc``).  Every event goes to the callables in :data:`_listeners`
 (``f(event, fields)``), always, and to the ``csr_tpu_torch.trace`` log
 when the ``CSR_TPU_TRACE`` environment variable is set.
 
@@ -68,7 +68,10 @@ that a cached split never counts again; ``csr.spmm.panels``, the column
 panels each CSR-form SpMM ran in, counted only where it ran in two or
 more (``ops/spmm.py:spmm_csr``); and from the events,
 ``route.<event>.<route>``, ``event.layout-build*`` (the panels' build is
-``event.layout-build-panels``), ``esc.terms`` and ``esc.chunks``.
+``event.layout-build-panels``), ``esc.terms`` and ``esc.chunks``; and
+``esc.keys32`` and ``esc.keys64``, each ESC chunk by the width of its
+sort key (``ops/spgemm.py:_esc_rows``; the ``esc`` event's ``key_bits``
+is the widest of a call).
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ structure of its products, empty operands, ``abt`` against ``ab`` of the
 transpose, and its products against ``csr_tpu.ops.spgemm``'s and
 scipy's, within the JAX suite's product tolerance
 (``tests/torch_util.py:assert_product_close``).  The cases are those of
-``tests/test_spgemm_internals.py``."""
+``tests/test_spgemm_internals.py``; the sort key's width (int32 local to
+the chunk, or int64) at its boundary of 2^31 - 1 output cells a chunk."""
 
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ import hypothesis.strategies as st
 import csr_tpu
 from csr_tpu.ops import spgemm as ref_spgemm
 from csr_tpu.test_utils import mm_pairs
-from csr_tpu_torch import CSR, kernels
+from csr_tpu_torch import CSR, kernels, tracing
 from csr_tpu_torch.ops import spgemm
 
 from torch_util import assert_product_close, port_of, random_matrix
@@ -151,4 +152,100 @@ def test_esc_emits_its_counts():
         kernels._listeners.pop()
     ones = a.astype(bool).astype(np.int64)
     terms = int((ones @ ones.T).sum())  # a term for each A[i, k], A[j, k] pair
-    assert seen == [{"terms": terms, "chunks": 1, "nnz": c.nnz}]
+    assert seen == [{"terms": terms, "chunks": 1, "nnz": c.nnz, "key_bits": 32}]
+
+
+def _traced(fn, *args):
+    """``fn(*args)`` with recording on: its result, the ``esc.keys*``
+    counters and the ``esc`` events' fields."""
+    seen = []
+    kernels._listeners.append(lambda e, f: seen.append(f) if e == "esc" else None)
+    rec = tracing.enable()
+    try:
+        out = fn(*args)
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+        kernels._listeners.pop()
+    return out, {k: v for k, v in counters.items() if k.startswith("esc.keys")}, seen
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("budget", [700, 2**24])
+def test_esc_narrow_keys_match_reference(transpose, budget, monkeypatch):
+    """Every chunk of a product whose chunks span fewer than 2^31 output
+    cells sorts int32 keys local to the chunk: one ``esc.keys32`` a chunk,
+    no ``esc.keys64``, and the JAX package's entries in its order and
+    scipy's product, in several chunks and in one."""
+    a = random_matrix(120, 90, 0.06, seed=65)
+    b = random_matrix(110 if transpose else 90, 90 if transpose else 110, 0.06,
+                      seed=66, big_group=False)
+    ref_a, ref_b = csr_tpu.CSR.from_scipy(a), csr_tpu.CSR.from_scipy(b)
+    monkeypatch.setattr(spgemm, "esc_chunk_entries", budget)
+    monkeypatch.setattr(ref_spgemm, "esc_chunk_entries", budget)
+    mul, ref_mul = ((spgemm.esc_mult_abt, ref_spgemm.esc_mult_abt) if transpose
+                    else (spgemm.esc_mult_ab, ref_spgemm.esc_mult_ab))
+    c, keys, (event,) = _traced(mul, port_of(ref_a), port_of(ref_b))
+    assert event["chunks"] > (1 if budget == 700 else 0)
+    assert keys == {"esc.keys32": event["chunks"]} and event["key_bits"] == 32
+    rc = ref_mul(ref_a, ref_b)
+    np.testing.assert_array_equal(c.rowptrs.numpy(), np.asarray(rc.rowptrs))
+    np.testing.assert_array_equal(c.colinds.numpy(), np.asarray(rc.colinds))
+    assert_product_close(c.values.numpy(), np.asarray(rc.values))
+    assert_product_close(to_dense(c), (a @ (b.T if transpose else b)).toarray())
+
+
+#: B of the boundary cases: 3 rows of 2^31 - 1 columns, the last column
+#: among them, so that a one-row chunk's largest key is 2^31 - 2
+_WIDE = 2**31 - 1
+_B_ROWS = [[0, _WIDE - 1], [5, 1000], [_WIDE - 1]]
+#: A's rows: columns of B's rows (3, 3 and 4 terms)
+_A_ROWS = [[0, 2], [1, 2], [0, 1]]
+
+
+@pytest.mark.parametrize("a_rows,budget,widths", [
+    (1, 2**24, [32]),      # 1 x (2^31 - 1) cells: fits
+    (2, 2**24, [64]),      # 2 x (2^31 - 1): falls back
+    (2, 3, [32, 32]),      # a row a chunk: each fits
+    (3, 6, [64, 32]),      # rows 0-1, then row 2
+])
+def test_esc_key_width_at_the_boundary(a_rows, budget, widths, monkeypatch):
+    """At ``ncols = 2^31 - 1`` a one-row chunk's keys fit int32 (its
+    largest, 2^31 - 2, the last column's), a chunk of two rows takes the
+    int64 key: each chunk counts its width, the event gives the widest,
+    and both give scipy's entries in scipy's order."""
+    rng = np.random.default_rng(67)
+    b_cols = np.concatenate(_B_ROWS).astype(np.int32)
+    b_vals = rng.integers(1, 5, len(b_cols)).astype(np.float32)
+    b_rps = np.cumsum([0] + [len(r) for r in _B_ROWS])
+    a_cols = np.concatenate(_A_ROWS[:a_rows]).astype(np.int32)
+    a_vals = rng.integers(1, 5, len(a_cols)).astype(np.float32)  # no sum cancels
+    a_rps = np.cumsum([0] + [len(r) for r in _A_ROWS[:a_rows]])
+    A = CSR(a_rows, 3, len(a_cols), a_rps, a_cols, a_vals, device="cpu")
+    B = CSR(3, _WIDE, len(b_cols), b_rps, b_cols, b_vals, device="cpu")
+    monkeypatch.setattr(spgemm, "esc_chunk_entries", budget)
+    sorted_keys = []
+    compress = spgemm._compress
+
+    def spy(key, *args):
+        sorted_keys.append((key.dtype, int(key.max())))
+        return compress(key, *args)
+
+    monkeypatch.setattr(spgemm, "_compress", spy)
+    c, keys, events = _traced(spgemm.esc_mult_ab, A, B)
+    assert [8 * d.itemsize for d, _ in sorted_keys] == widths
+    if widths == [32]:
+        assert sorted_keys[0][1] == _WIDE - 1
+    assert keys == {f"esc.keys{w}": widths.count(w) for w in set(widths)}
+    assert [e["key_bits"] for e in events] == [max(widths)]
+    # scipy's product over B's used columns, mapped back (in order)
+    used = np.unique(b_cols)
+    a_s = sps.csr_matrix((a_vals, a_cols, a_rps), shape=(a_rows, 3))
+    b_s = sps.csr_matrix((b_vals, np.searchsorted(used, b_cols), b_rps),
+                         shape=(3, len(used)))
+    want = (a_s @ b_s).tocsr()
+    want.sort_indices()
+    assert (c.nrows, c.ncols) == (a_rows, _WIDE)
+    np.testing.assert_array_equal(c.rowptrs.numpy(), want.indptr)
+    np.testing.assert_array_equal(c.colinds.numpy(), used[want.indices])
+    np.testing.assert_array_equal(c.values.numpy(), want.data)

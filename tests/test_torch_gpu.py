@@ -435,24 +435,54 @@ def test_ring_and_dist_on_card(n_shards, cuda_device):
         rtol=1e-4, atol=1e-3)
 
 
+@pytest.mark.parametrize("wide", [False, True])
 @pytest.mark.parametrize("budget", [5000, 2**24])
-def test_esc_on_card(budget, cuda_device, monkeypatch):
+def test_esc_on_card(budget, wide, cuda_device, monkeypatch):
     """ESC on the card, in several chunks and in one, both ways, against
-    scipy; the product stays on the card with its rows sorted."""
+    scipy; the product stays on the card with its rows sorted.  B 250
+    columns wide, every chunk's keys fit int32; 2^27 wide (12 entries a
+    row), a chunk of 16 rows or more takes the int64 key."""
+    from csr_tpu_torch import tracing
     from csr_tpu_torch.ops import spgemm
 
     monkeypatch.setattr(spgemm, "esc_chunk_entries", budget)
     a = random_matrix(300, 400, 0.05, seed=70)
-    b = random_matrix(400, 250, 0.05, seed=71, big_group=False)
+    if wide:
+        rng = np.random.default_rng(71)
+        cols = rng.choice(2**27, 400 * 12, replace=False).astype(np.int32)
+        b = sps.csr_matrix((rng.uniform(-1, 1, 400 * 12).astype(np.float32),
+                            cols, np.arange(0, 400 * 12 + 1, 12)),
+                           shape=(400, 2**27))
+        b.sort_indices()
+    else:
+        b = random_matrix(400, 250, 0.05, seed=71, big_group=False)
+    # scipy's product over B's used columns, mapped back
+    used = np.unique(b.indices)
+    want = (a @ sps.csr_matrix((b.data, np.searchsorted(used, b.indices),
+                                b.indptr), shape=(400, len(used)))).tocsr()
     A = CSR.from_scipy(a, device=cuda_device)
-    for c, want in ((spgemm.esc_mult_ab(A, CSR.from_scipy(b, device=cuda_device)),
-                     a @ b),
-                    (spgemm.esc_mult_abt(A, CSR.from_scipy(b.T.tocsr(),
-                                                           device=cuda_device)),
-                     a @ b)):
-        assert c.device.type == cuda_device.type and (c.nrows, c.ncols) == want.shape
+    rec = tracing.enable()
+    try:
+        products = (spgemm.esc_mult_ab(A, CSR.from_scipy(b, device=cuda_device)),
+                    spgemm.esc_mult_abt(A, CSR.from_scipy(b.T.tocsr(),
+                                                          device=cuda_device)))
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    if not wide:
+        assert "esc.keys64" not in counters and counters["esc.keys32"] >= 2
+    elif budget == 2**24:  # one chunk of 300 rows a product
+        assert "esc.keys32" not in counters and counters["esc.keys64"] == 2
+    else:  # chunks of 5 to 24 rows: all but the first and last past 2^31 cells
+        assert counters["esc.keys64"] >= 2
+    for c in products:
+        assert c.device.type == cuda_device.type
+        assert (c.nrows, c.ncols) == (300, b.shape[1])
         got = c.to_scipy()
         assert got.has_sorted_indices
+        got = sps.csr_matrix((got.data, np.searchsorted(used, got.indices),
+                              got.indptr), shape=want.shape)
+        assert np.isin(c.colinds.cpu().numpy(), used).all()
         assert_product_close(got.toarray(), want.toarray())
 
 
