@@ -5,7 +5,7 @@ Smoke test of the csr_tpu_torch main path on one CUDA card.
 
 It builds the CUDA kernels from ``csr_tpu_torch/csrc`` (into
 ``csr_tpu_torch/_build/``, one ``nvcc`` per source, side by side) and
-runs twenty-two phases; any failure raises and the script exits nonzero.  It
+runs twenty-four phases; any failure raises and the script exits nonzero.  It
 needs a CUDA device and never falls back to the CPU: every matrix is
 built with no device named and must land on the card.
 
@@ -185,6 +185,11 @@ built with no device named and must land on the card.
     entries; and ``mult_vec``, ``mult_vec_t`` and ``mult_dense`` on every
     route after ``values.mul_(2)`` against scipy's products of the new
     values.
+23. The CSR-form SpMM in column panels at KDD-Cup'11's R . Q and Rt . P
+    and at thinned and swept matrices (:func:`phase_spmm_panels`).
+24. The micro-block SpMM at the Netflix Prize's R . Q and Rt . P (B 3.6
+    MB in L2; B 96 MB past it, about 207 groups a row window): kernel
+    alone, groups, gap to the plain version (:func:`phase_netflix`).
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
@@ -3316,6 +3321,90 @@ def phase_spmm_panels(card):
     return sweep, calls, max_err
 
 
+#: the micro-block SpMM's largest gap to its plain version at the Netflix
+#: shapes, as a share of |A| |B| (the benchmark's limit at its ALS cells)
+NETFLIX_ERR_LIMIT = 1e-5
+
+
+def phase_netflix(card, n=50):
+    """[24] The micro-block SpMM at the Netflix Prize's shapes (the
+    benchmark's generator, seed 1: 480,189 users x 17,770 movies,
+    100,480,507 ratings): R . Q, whose B (3.6 MB) sits in L2, and Rt . P,
+    whose B (96 MB) is past it and whose row windows hold about 207
+    groups of 32 micro-rows each, all adding into C's same rows.  For
+    each: the route, the layout's build time, bytes an entry and groups
+    (``kernels/cuda.py:group_counts``), the kernel alone and the whole
+    call (C's zeros, B's padded copy) by device_ms, the bound by bytes
+    (``cardbench/roofline.py``), the gather rate, and the gap to the
+    plain version (``spmm_reference``) as a share of |A| |B|, held to
+    NETFLIX_ERR_LIMIT.  Returns the rows.  Runs alone as
+    ``python3 -c "import chip_smoke as s; s.phase_netflix(s.phase_environment())"``."""
+    import dataclasses
+
+    from cardbench import generate, roofline
+    from csr_tpu_torch import CSR
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    t0 = time.perf_counter()
+    cfg = generate.load_config("netflix")
+    trip = generate.ratings(cfg, 1, "cuda")
+    rounds = trip["redraw_rounds"]
+    r = CSR.from_coo(trip["rows"], trip["cols"], trip["vals"], shape=trip["shape"],
+                     device="cuda")
+    del trip
+    rt = r.transpose()
+    torch.cuda.synchronize()
+    print(f"[24] netflix R {r.nrows} x {r.ncols}, {r.nnz} entries ({rounds} redraw "
+          f"rounds), and Rt made in {time.perf_counter() - t0:.1f} s")
+    g = torch.Generator(device="cuda").manual_seed(24)
+    q = torch.randn(r.ncols, n, device="cuda", generator=g)
+    p = torch.randn(r.nrows, n, device="cuda", generator=g)
+    l2 = cuda_k._l2_bytes(q.device)
+    rows = []
+    for tag, m, b in (("netflix R.Q", r, q), ("netflix Rt.P", rt, p)):
+        route = cuda_k._spmm_route(m, n)
+        t1 = time.perf_counter()
+        layout = cuda_k._cached_layout(m)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t1
+        groups = cuda_k.group_counts(layout)
+        fn = lambda layout=layout, b=b: spmm_op.spmm(layout, b)
+        c = fn()
+        ref = spmm_op.spmm_reference(layout, b)
+        scale = spmm_op.spmm_reference(dataclasses.replace(layout, vals=layout.vals.abs()),
+                                       b.abs())
+        err = gap_to(c, (ref, scale))
+        del ref, scale
+        used = int((torch.bincount(m.colinds.long(), minlength=m.ncols) > 0).sum())
+        nbytes, flops = roofline.product_work(m.nnz, m.nrows, m.rowptrs.element_size(),
+                                              used, n, m.nrows)
+        least = roofline.least_ms(nbytes, flops, card)
+        whole, by_name = device_ms(fn, 5, by_kernel=True, floor_ms=least)
+        kernel = sum(t for name, t in by_name.items() if "spmm" in name.lower())
+        row = dict(matrix=tag, n=n, route=route, pack_s=pack_s, **groups,
+                   bytes_an_entry=layout.nbytes / m.nnz, b_bytes=b.numel() * 4,
+                   b_past_l2=spmm_op.b_past_l2(m.ncols, n, l2), kernel_ms=kernel,
+                   call_ms=whole, least_ms=least, max_err=err,
+                   gather_tbps=m.nnz * n * 4 / kernel / 1e9)
+        rows.append(row)
+        print(f"[24] {tag}, n {n}: route {route}; layout built in {pack_s:.2f} s, "
+              f"{row['bytes_an_entry']:.2f} B an entry, {groups['windows']} row windows, "
+              f"{groups['groups']} groups, at most {groups['groups_max']} a window; B "
+              f"{row['b_bytes'] / 1e6:.1f} MB, past L2 ({l2} B) {row['b_past_l2']}; kernel "
+              f"{kernel:.5f} ms, whole call {whole:.5f} ms "
+              f"({', '.join(f'{k[:30]} {v:.5f}' for k, v in by_name.items())}); bound "
+              f"{least:.5f} ms by bytes ({least / kernel:.3f} of it); gather "
+              f"{row['gather_tbps']:.3f} TB/s; gap to the plain version {err:.3g} of "
+              f"|A||B|; card {card}")
+        assert route == "kernel", (tag, route)
+        assert err <= NETFLIX_ERR_LIMIT, (tag, err)
+        del c, fn, layout
+        torch.cuda.empty_cache()
+    print(json.dumps({"netflix_spmm": rows}))
+    return rows
+
+
 def stamp(tag, t0=time.perf_counter()):
     """Print the seconds since the script started, after ``tag``."""
     print(f"[time] {tag}: {time.perf_counter() - t0:.1f} s since the start")
@@ -3463,6 +3552,8 @@ def main():
     stamp("phase 22")
     _, panel_launches, panel_err = phase_spmm_panels(card)
     stamp("phase 23")
+    phase_netflix(card)
+    stamp("phase 24")
 
     def yardsticks(name):
         """Device times, the bound and the chained times at the flagship,

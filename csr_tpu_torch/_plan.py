@@ -40,8 +40,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from . import _forms, tracing
-from .tracing import _listeners, count, trace
+from . import _forms
+from .tracing import count, listening, trace
 
 
 class Plan(NamedTuple):
@@ -90,7 +90,7 @@ def run(csr, kernel, key: tuple, v):
         reason = "grad"
     else:
         count("plan.hit")
-        if not (_listeners or tracing._TRACE):
+        if not listening():
             return plan.run(v)
         *before, after = plan.events
         for event, fields in before:

@@ -44,7 +44,7 @@ import torch.utils._pytree as _pytree
 from . import _forms, _plan, _rows, structure
 from .dtypes import COLIND_DTYPE, INT32_MAX, VALUE_DTYPE, ptr_dtype
 from .kernels import default_device, get_kernel, releasing
-from .tracing import count, spanned
+from .tracing import count, span, spanned
 
 _log = logging.getLogger(__name__)
 
@@ -87,7 +87,8 @@ class CSR:
         device(torch.device): where the tensors live.
     """
 
-    __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_forms")
+    __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_forms",
+                 "__weakref__")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True,
                  device=None):
@@ -228,8 +229,9 @@ class CSR:
                 return a.cpu().numpy()
             return np.asarray(a)
 
-        rows, cols = host(rows), host(cols)
-        vals = None if vals is None else host(vals)
+        with span("csr.construct.read"):
+            rows, cols = host(rows), host(cols)
+            vals = None if vals is None else host(vals)
         nnz = len(rows)
         _require(len(cols) == nnz and (vals is None or len(vals) == nnz),
                  "rows, cols and vals must have one length")
@@ -245,8 +247,10 @@ class CSR:
             _require(rmax < max(nrows, 1) and cmax < max(ncols, 1),
                      f"index out of range of shape {shape}")
 
-        rps, cis, vs = structure.from_coo(nrows, rows, cols, vals)
-        csr = cls(nrows, ncols, nnz, rps, cis, vs, device=device)
+        with span("csr.construct.convert"):
+            rps, cis, vs = structure.from_coo(nrows, rows, cols, vals)
+        with span("csr.construct.upload"):
+            csr = cls(nrows, ncols, nnz, rps, cis, vs, device=device)
         if rpdtype is not None:
             rpdtype = _torch_dtype(rpdtype)
             if nnz > torch.iinfo(rpdtype).max:

@@ -104,7 +104,7 @@ from csr_tpu_torch.ops import microblock
 from csr_tpu_torch.ops import spgemm as _spgemm_op
 from csr_tpu_torch.ops import spmm as _spmm_op
 from csr_tpu_torch.ops import spmv as _spmv_op
-from csr_tpu_torch.tracing import count, recording, spanned
+from csr_tpu_torch.tracing import count, listening, recording, spanned
 
 # Per-operation capacity, from the card's memory: an H100 holds 80 GB.  A
 # layout costs 6 B per padded slot, 12 B per stored entry at fill 0.5.  A
@@ -421,8 +421,25 @@ def _build(csr, transpose: bool):
         "layout-build-t" if transpose else "layout-build",
         nnz=layout.nnz, microrows=layout.n_microrows,
         fill=round(layout.fill, 3), bytes=layout.nbytes,
+        **(group_counts(layout) if listening() else {}),
     )
     return layout
+
+
+def group_counts(layout: microblock.MicroBlockLayout) -> dict:
+    """``windows``, ``groups`` and ``groups_max`` of a layout: its row
+    windows that hold micro-rows, its groups of ``ACC_GROUP`` micro-rows
+    (each in one row window, adding its sums into C's rows there) and the
+    most groups of one row window, read from ``rbcb`` (one read to the
+    host)."""
+    rb = (layout.rbcb[: layout.n_microrows : microblock.ACC_GROUP] >> 16).long()
+    if rb.numel() == 0:
+        return {"windows": 0, "groups": 0, "groups_max": 0}
+    per = torch.zeros(layout.rb_count, dtype=torch.int64, device=rb.device)
+    per.index_add_(0, rb, torch.ones_like(rb))
+    windows, most = torch.stack([(per > 0).sum(), per.max()]).tolist()
+    count("host_reads")
+    return {"windows": windows, "groups": rb.numel(), "groups_max": most}
 
 
 def _build_large(csr, transpose: bool):
@@ -831,7 +848,7 @@ def _sparse_times_dense(h, b, op: str, plan: bool = False):
         plan = plan and form[1] is c.colinds and form[2] is c.values
     else:
         form, edges = _cached_layout(c, ver), None
-        out = _spmm_op.spmm(form, b)
+        out = _spmm_op.spmm(form, b, l2_bytes=_l2_bytes(b.device))
     if plan and n and torch._C._functorch.maybe_current_level() is None:
         h.plan = _plan.make(b, route_settings(), _spmm_run(form, edges, b, panels),
                             _events(c, (op, fields)))
@@ -844,13 +861,14 @@ def _spmm_run(form, edges, b, panels=None):
     for a B like ``b``: on the card the wrapper's launch, its checks done;
     on the CPU the wrapper as the general path calls it."""
     csr_form = isinstance(form, tuple)
+    l2 = 0 if csr_form else _l2_bytes(b.device)
     if b.device.type != "cuda":
         if csr_form:
             return lambda x: _spmm_op.spmm_csr(*form, x, edges=edges, panels=panels)
-        return lambda x: _spmm_op.spmm(form, x)
+        return lambda x: _spmm_op.spmm(form, x, l2_bytes=l2)
     if csr_form:
         return _spmm_op.spmm_csr_launch(*form, edges, b, panels)
-    return _spmm_op.spmm_launch(form, b)
+    return _spmm_op.spmm_launch(form, b, l2_bytes=l2)
 
 
 @spanned("csr.backend.mult_dense")

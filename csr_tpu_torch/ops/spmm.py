@@ -251,11 +251,19 @@ def spmm_regrouped(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
     return c
 
 
+def b_past_l2(ncols: int, n: int, l2_bytes: int) -> bool:
+    """Whether B's rows, ``ncols`` of ``n`` f32, pass an L2 of ``l2_bytes``
+    (never where that is 0: off a card, or not given)."""
+    return 0 < l2_bytes < ncols * n * 4
+
+
 @spanned("csr.op.spmm")
-def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
+def spmm(layout: MicroBlockLayout, b: torch.Tensor, l2_bytes: int = 0) -> torch.Tensor:
     """``A @ B`` for a micro-block matrix and a dense ``b`` of shape
     ``(ncols, n)``; returns f32 ``(nrows, n)`` on the layout's device.
-    ``b`` must lie on that device; another dtype is cast to f32."""
+    ``b`` must lie on that device; another dtype is cast to f32.  Where
+    B's rows pass ``l2_bytes`` (the card's L2, :func:`b_past_l2`), each
+    call counts ``csr.spmm.b_past_l2`` while tracing records."""
     dev = layout.device
     if b.ndim != 2 or b.shape[0] != layout.ncols or b.device != dev:
         raise ValueError(
@@ -263,6 +271,8 @@ def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
             f"{tuple(b.shape)} on {b.device}"
         )
     if dev.type == "cpu":
+        if b_past_l2(layout.ncols, b.shape[1], l2_bytes):
+            count("csr.spmm.b_past_l2")
         return spmm_regrouped(layout, b)
     if dev.type != "cuda":
         raise ValueError(f"spmm runs on CPU or CUDA tensors, not {dev}")
@@ -270,7 +280,7 @@ def spmm(layout: MicroBlockLayout, b: torch.Tensor) -> torch.Tensor:
     b = _as_read(b)
     if layout.n_microrows == 0 or b.shape[1] == 0:
         return torch.zeros(layout.nrows, b.shape[1], dtype=torch.float32, device=dev)
-    return spmm_launch(layout, b)(b)
+    return spmm_launch(layout, b, l2_bytes)(b)
 
 
 _pad = torch.nn.functional.pad
@@ -281,14 +291,15 @@ def _as_read(b: torch.Tensor) -> torch.Tensor:
     return b.to(torch.float32).contiguous()
 
 
-def spmm_launch(layout: MicroBlockLayout, like: torch.Tensor):
+def spmm_launch(layout: MicroBlockLayout, like: torch.Tensor, l2_bytes: int = 0):
     """:func:`spmm`'s launch on the card for a B like ``like`` (its dtype,
     shape, strides and alignment; checked by :func:`spmm`), the layout's
     side and the :func:`launch_plan` bound once: a function of B that
     makes it contiguous f32, zeroes C, hands the kernel B's padded copy
     where the plan says so (rows padded to a multiple of 4 floats, 16 B
-    aligned), takes the current stream and launches.  A product plan
-    (``csr_tpu_torch/_plan.py``) keeps it for such a B."""
+    aligned), takes the current stream and launches (counting
+    ``csr.spmm.b_past_l2`` where B's rows pass ``l2_bytes``).  A product
+    plan (``csr_tpu_torch/_plan.py``) keeps it for such a B."""
     from . import _cuda
 
     read = _as_read(like)
@@ -302,6 +313,7 @@ def spmm_launch(layout: MicroBlockLayout, like: torch.Tensor):
     mid = (layout.n_microrows // ACC_GROUP, layout.epos_shift, nrows, n)
     tail = (n, plan.lanes, plan.tiles_per_chunk)  # C's row stride, the plan
     pad = (0, plan.ldb - n) if plan.copy else None
+    past_l2 = b_past_l2(layout.ncols, n, l2_bytes)
 
     def launch(b):
         global launches
@@ -313,6 +325,8 @@ def spmm_launch(layout: MicroBlockLayout, like: torch.Tensor):
         _cuda.call_on(index, kernel, *ptrs, b.data_ptr(), c.data_ptr(), *mid,
                       b.stride(0), *tail, _cuda.stream(index))
         launches += 1
+        if past_l2:
+            count("csr.spmm.b_past_l2")
         return c
 
     return launch

@@ -5,8 +5,12 @@ The package's instrumentation: events, spans and counters, one system.
 (``to_handle``, ``release_handle``), the route of each product (an
 event named for the product, ``mult_vec``, ``mult_vec_t``,
 ``mult_dense`` or ``spgemm``, whose ``route`` field names it), each
-layout or transpose built (``layout-build*``) and ESC's terms, chunks
-and key width (``esc``).  Every event goes to the callables in :data:`_listeners`
+layout or transpose built (``layout-build*``; a micro-block layout's
+``layout-build`` and ``layout-build-t`` give its row ``windows`` that
+hold micro-rows, its ``groups`` of 32 micro-rows and ``groups_max``, the
+most groups in one row window, worked out only where an event reaches
+someone: :func:`listening`) and ESC's terms, chunks and key width
+(``esc``).  Every event goes to the callables in :data:`_listeners`
 (``f(event, fields)``), always, and to the ``csr_tpu_torch.trace`` log
 when the ``CSR_TPU_TRACE`` environment variable is set.
 
@@ -52,8 +56,10 @@ Spans, from a public call down:
 * ``csr.esc.plan``, ``csr.esc.expand``, ``csr.esc.compress`` and
   ``csr.structure.transpose``: ESC's host plan and its two halves, and
   the transpose of B that ``A @ B^T`` makes;
-* ``csr.construct.from_coo``: ``CSR.from_coo``, its read of the triples
-  to the host, the native conversion and the upload.
+* ``csr.construct.from_coo``: ``CSR.from_coo``, with three spans inside:
+  ``csr.construct.read`` (the triples read to the host),
+  ``csr.construct.convert`` (the native conversion) and
+  ``csr.construct.upload`` (the matrix's tensors to its device).
 
 Counters: ``host_reads``, each read of a tensor to the host that waits
 for the card (``.cpu()``, ``int(t)``, ``.tolist()``, a boolean mask's
@@ -66,9 +72,14 @@ edges built (its shares, the rows a share edge cuts, the rows over
 three shares or more: ``kernels/cuda.py:_build_edges``), set-up figures
 that a cached split never counts again; ``csr.spmm.panels``, the column
 panels each CSR-form SpMM ran in, counted only where it ran in two or
-more (``ops/spmm.py:spmm_csr``); and from the events,
-``route.<event>.<route>``, ``event.layout-build*`` (the panels' build is
-``event.layout-build-panels``), ``esc.terms`` and ``esc.chunks``; and
+more (``ops/spmm.py:spmm_csr``); ``csr.spmm.b_past_l2``, each
+micro-block SpMM whose B's rows (``B.shape[0] * n * 4`` bytes) pass the
+card's L2 (``ops/spmm.py:spmm``, plan hits included); and from the
+events, ``route.<event>.<route>``, ``event.layout-build*`` (the panels'
+build is ``event.layout-build-panels``), ``event.<layout-build or
+layout-build-t>.windows`` and ``.groups`` (summed over the layouts
+built) and ``.groups_max`` (the most of any), ``esc.terms`` and
+``esc.chunks``; and
 ``esc.keys32`` and ``esc.keys64``, each ESC chunk by the width of its
 sort key (``ops/spgemm.py:_esc_rows``; the ``esc`` event's ``key_bits``
 is the widest of a call).
@@ -87,8 +98,8 @@ from typing import NamedTuple
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["count", "disable", "enable", "recording", "snapshot", "span", "spanned",
-           "trace"]
+__all__ = ["count", "disable", "enable", "listening", "recording", "snapshot", "span",
+           "spanned", "trace"]
 
 _TRACE = bool(os.environ.get("CSR_TPU_TRACE"))
 _trace_log = logging.getLogger("csr_tpu_torch.trace")
@@ -101,6 +112,13 @@ if _TRACE and not _trace_log.handlers:  # pragma: no cover - env-dependent
 #: registered event listeners (callables ``f(event, fields)``), always
 #: dispatched, whether or not CSR_TPU_TRACE is set
 _listeners: list = []
+
+
+def listening() -> bool:
+    """Whether an event reaches anyone (a listener, or the log): a site
+    whose event fields cost work of their own to compute does it only
+    then."""
+    return bool(_listeners) or _TRACE
 
 
 def trace(event: str, **fields):
@@ -224,6 +242,11 @@ class Recorder:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
 
+    def most(self, name: str, n: int):
+        """Keep in counter ``name`` the largest ``n`` it has been given."""
+        with self._lock:
+            self.counters[name] = max(self.counters.get(name, n), n)
+
     def __call__(self, event: str, fields: dict):
         # the routes, layout builds and ESC's work; a handle's events,
         # two a call, are left to the listeners that want them
@@ -235,6 +258,10 @@ class Recorder:
             self.add("esc.chunks", int(fields.get("chunks", 0)))
         elif event.startswith("layout-build"):
             self.add("event." + event)
+            if "groups_max" in fields:
+                self.add(f"event.{event}.windows", int(fields["windows"]))
+                self.add(f"event.{event}.groups", int(fields["groups"]))
+                self.most(f"event.{event}.groups_max", int(fields["groups_max"]))
 
     def snapshot(self, reset: bool = False) -> dict:
         with self._lock:

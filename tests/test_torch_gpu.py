@@ -1148,3 +1148,50 @@ def test_spmm_csr_panels_plan_hit_on_card(cuda_device, monkeypatch):
     one = spmm.spmm_csr(c.rowptrs, c.colinds, c.values, bd)
     gap = np.abs(general.cpu().numpy().astype(np.float64) - one.cpu().numpy())
     assert np.all(gap <= 1e-6 * _error_scale(a, b))
+
+
+def test_spmm_hundreds_of_groups_a_window_b_past_l2_on_card(cuda_device):
+    """One 128-row window over 480,189 columns, as a row window of the
+    Netflix Prize ratings' transpose is (about 6,300 entries a row): 200
+    groups of 32 micro-rows or more, each adding its sums atomically into
+    the same 128 rows of C, times a B of 96 MB (480,189 x 50 f32), past
+    the card's L2.  Through ``mult_dense`` (the micro-block route, then a
+    plan's hit; ``csr.spmm.b_past_l2`` counts both) and on the layout
+    alone, each against the float64 product within 1e-5 of |A||B| (the
+    benchmark's limit at its ALS cells)."""
+    from csr_tpu_torch import tracing
+    from csr_tpu_torch.kernels import cuda as cuda_k
+
+    rng = np.random.default_rng(21)
+    ncols, per_row, n = 480_189, 6_600, 50
+    rows = np.repeat(np.arange(128), per_row)
+    cols = rng.integers(0, ncols, rows.size)
+    vals = rng.uniform(-1, 1, rows.size).astype(np.float32)
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(128, ncols)).tocsr()
+    a.sum_duplicates()
+    c = CSR.from_scipy(a, device=cuda_device)
+    b = rng.standard_normal((ncols, n)).astype(np.float32)
+    bd = torch.from_numpy(b).to(cuda_device)
+    assert b.nbytes >= 96_000_000
+    assert spmm.b_past_l2(ncols, n, cuda_k._l2_bytes(cuda_device))
+    assert cuda_k._spmm_route(c, n) == "kernel"
+    rec = tracing.enable()
+    try:
+        with use_kernel("cuda"):
+            general = c.mult_dense(bd)
+            hit = c.mult_dense(bd)
+        torch.cuda.synchronize()
+        counters = rec.snapshot()["counters"]
+    finally:
+        tracing.disable()
+    assert counters["plan.hit"] == 1 and counters["csr.spmm.b_past_l2"] == 2
+    layout = cuda_k._cached_layout(c)
+    groups = cuda_k.group_counts(layout)
+    assert groups["windows"] == 1 and groups["groups_max"] >= 200, groups
+    alone = spmm.spmm(layout, bd)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    scale = _error_scale(a, b)
+    for got in (general, hit, alone):
+        got = got.cpu().numpy().astype(np.float64)
+        assert_product_close(got, ref)
+        assert np.all(np.abs(got - ref) <= 1e-5 * scale)
