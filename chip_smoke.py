@@ -187,9 +187,11 @@ built with no device named and must land on the card.
     values.
 23. The CSR-form SpMM in column panels at KDD-Cup'11's R . Q and Rt . P
     and at thinned and swept matrices (:func:`phase_spmm_panels`).
-24. The micro-block SpMM at the Netflix Prize's R . Q and Rt . P (B 3.6
-    MB in L2; B 96 MB past it, about 207 groups a row window): kernel
-    alone, groups, gap to the plain version (:func:`phase_netflix`).
+24. The micro-block SpMM's order of groups, packer's against column
+    order, at the Netflix Prize's R . Q and Rt . P (B 3.6 MB in L2; B 96
+    MB past it, about 207 groups a row window), MovieLens-25M's both
+    ways, the flagship and the MovieLens-25M shape: kernel alone, groups,
+    gap to the plain version (:func:`phase_netflix`).
 
 SpMV comparisons use the bound of ``tests/util.py:assert_spmv_close``
 (rtol 1e-4 plus 384 f32 eps times the L1 mass of the row's 128-row
@@ -401,7 +403,7 @@ def card_line() -> str:
 def phase_environment():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
-    from csr_tpu_torch.ops import _cuda, spmm as spmm_op, spmv as spmv_op
+    from csr_tpu_torch.ops import _cuda, spmv as spmv_op
 
     card = card_line()
     print(f"[1] card: {card}")
@@ -416,18 +418,9 @@ def phase_environment():
         for line in _cuda.build_log[name].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[1]   ptxas: {line.strip()}")
-    # the SpMM launch plan counts on five blocks of 256 threads an SM: of
-    # 65,536 registers and 233,472 B of shared memory (1 KB more a block)
-    log = _cuda.build_log["spmm_microblock"]
-    used = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", log)
-    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-    assert len(used) == len(spills) == 3, log
-    assert all(int(st) == int(ld) == 0 for st, ld in spills), spills
-    blocks = min(min(65536 // (int(r) * 256), 233472 // (int(sm) + 1024))
-                 for r, sm in used)
-    assert blocks * 132 >= spmm_op.BLOCKS_IN_FLIGHT, (used, blocks)
-    print(f"[1] spmm_microblock: no spills, {blocks} blocks an SM by registers "
-          "and shared memory")
+    registers, blocks = spmm_occupancy()
+    print(f"[1] spmm_microblock: no spills, {registers} registers, {blocks} blocks an "
+          "SM by registers and shared memory")
     # the bucket kernel's grid counts on BLOCKS_PER_SM blocks an SM of
     # WARPS_PER_BLOCK warps, each warp with its ring of stages in shared
     # memory: the runtime must agree
@@ -3326,33 +3319,31 @@ def phase_spmm_panels(card):
 NETFLIX_ERR_LIMIT = 1e-5
 
 
-def phase_netflix(card, n=50):
-    """[24] The micro-block SpMM at the Netflix Prize's shapes (the
-    benchmark's generator, seed 1: 480,189 users x 17,770 movies,
-    100,480,507 ratings): R . Q, whose B (3.6 MB) sits in L2, and Rt . P,
-    whose B (96 MB) is past it and whose row windows hold about 207
-    groups of 32 micro-rows each, all adding into C's same rows.  For
-    each: the route, the layout's build time, bytes an entry and groups
-    (``kernels/cuda.py:group_counts``), the kernel alone and the whole
-    call (C's zeros, B's padded copy) by device_ms, the bound by bytes
-    (``cardbench/roofline.py``), the gather rate, and the gap to the
-    plain version (``spmm_reference``) as a share of |A| |B|, held to
-    NETFLIX_ERR_LIMIT.  Returns the rows.  Runs alone as
+def phase_netflix(card, n=50, turns=2):
+    """[24] The micro-block SpMM's order of groups, at the Netflix
+    Prize's shapes (the benchmark's generator, seed 1: 480,189 users x
+    17,770 movies, 100,480,507 ratings): R . Q, whose B (3.6 MB) sits in
+    L2 and whose C (96 MB) does not, and Rt . P, whose B (96 MB) is past
+    L2 and whose row windows hold about 207 groups of 32 micro-rows each;
+    then MovieLens-25M's (the benchmark's generator) both ways, the
+    flagship (B 256 and 8 wide) and the MovieLens-25M shape of phase 4 (B
+    50 and 256 wide).  For each: the route, the layout's build time,
+    bytes an entry and groups (``kernels/cuda.py:group_counts``), the
+    kernel alone and the whole call (C's zeros, B's padded copy) by
+    device_ms in the packer's order and in the layout's column order
+    (``ops/microblock.py:group_order``), in ``turns`` turns, the bound by
+    bytes (``cardbench/roofline.py``), the gather rates, and each order's
+    gap to the plain version (``spmm_reference``) as a share of |A| |B|,
+    held to NETFLIX_ERR_LIMIT.  Reports the kernel's registers and blocks
+    an SM (no spills: :func:`spmm_occupancy`).  Returns the rows.  Runs
+    alone as
     ``python3 -c "import chip_smoke as s; s.phase_netflix(s.phase_environment())"``."""
-    import dataclasses
-
-    from cardbench import generate, roofline
     from csr_tpu_torch import CSR
-    from csr_tpu_torch.kernels import cuda as cuda_k
-    from csr_tpu_torch.ops import spmm as spmm_op
 
+    registers, blocks = spmm_occupancy()
+    print(f"[24] spmm_microblock: {registers} registers, no spills, {blocks} blocks an SM")
     t0 = time.perf_counter()
-    cfg = generate.load_config("netflix")
-    trip = generate.ratings(cfg, 1, "cuda")
-    rounds = trip["redraw_rounds"]
-    r = CSR.from_coo(trip["rows"], trip["cols"], trip["vals"], shape=trip["shape"],
-                     device="cuda")
-    del trip
+    r, rounds = generated("netflix")
     rt = r.transpose()
     torch.cuda.synchronize()
     print(f"[24] netflix R {r.nrows} x {r.ncols}, {r.nnz} entries ({rounds} redraw "
@@ -3360,49 +3351,121 @@ def phase_netflix(card, n=50):
     g = torch.Generator(device="cuda").manual_seed(24)
     q = torch.randn(r.ncols, n, device="cuda", generator=g)
     p = torch.randn(r.nrows, n, device="cuda", generator=g)
-    l2 = cuda_k._l2_bytes(q.device)
-    rows = []
-    for tag, m, b in (("netflix R.Q", r, q), ("netflix Rt.P", rt, p)):
-        route = cuda_k._spmm_route(m, n)
-        t1 = time.perf_counter()
-        layout = cuda_k._cached_layout(m)
-        torch.cuda.synchronize()
-        pack_s = time.perf_counter() - t1
-        groups = cuda_k.group_counts(layout)
-        fn = lambda layout=layout, b=b: spmm_op.spmm(layout, b)
-        c = fn()
-        ref = spmm_op.spmm_reference(layout, b)
-        scale = spmm_op.spmm_reference(dataclasses.replace(layout, vals=layout.vals.abs()),
-                                       b.abs())
-        err = gap_to(c, (ref, scale))
-        del ref, scale
-        used = int((torch.bincount(m.colinds.long(), minlength=m.ncols) > 0).sum())
-        nbytes, flops = roofline.product_work(m.nnz, m.nrows, m.rowptrs.element_size(),
-                                              used, n, m.nrows)
-        least = roofline.least_ms(nbytes, flops, card)
-        whole, by_name = device_ms(fn, 5, by_kernel=True, floor_ms=least)
-        kernel = sum(t for name, t in by_name.items() if "spmm" in name.lower())
-        row = dict(matrix=tag, n=n, route=route, pack_s=pack_s, **groups,
-                   bytes_an_entry=layout.nbytes / m.nnz, b_bytes=b.numel() * 4,
-                   b_past_l2=spmm_op.b_past_l2(m.ncols, n, l2), kernel_ms=kernel,
-                   call_ms=whole, least_ms=least, max_err=err,
-                   gather_tbps=m.nnz * n * 4 / kernel / 1e9)
-        rows.append(row)
-        print(f"[24] {tag}, n {n}: route {route}; layout built in {pack_s:.2f} s, "
-              f"{row['bytes_an_entry']:.2f} B an entry, {groups['windows']} row windows, "
-              f"{groups['groups']} groups, at most {groups['groups_max']} a window; B "
-              f"{row['b_bytes'] / 1e6:.1f} MB, past L2 ({l2} B) {row['b_past_l2']}; kernel "
-              f"{kernel:.5f} ms, whole call {whole:.5f} ms "
-              f"({', '.join(f'{k[:30]} {v:.5f}' for k, v in by_name.items())}); bound "
-              f"{least:.5f} ms by bytes ({least / kernel:.3f} of it); gather "
-              f"{row['gather_tbps']:.3f} TB/s; gap to the plain version {err:.3g} of "
-              f"|A||B|; card {card}")
-        assert route == "kernel", (tag, route)
-        assert err <= NETFLIX_ERR_LIMIT, (tag, err)
-        del c, fn, layout
+    rows = [time_group_order("netflix R.Q", r, q, card, turns),
+            time_group_order("netflix Rt.P", rt, p, card, turns)]
+    del r, rt, q, p
+    torch.cuda.empty_cache()
+    ml, _ = generated("ml25m")
+    mlt = ml.transpose()
+    qm = torch.randn(ml.ncols, n, device="cuda", generator=g)
+    pm = torch.randn(mlt.ncols, n, device="cuda", generator=g)
+    rows += [time_group_order("ml25m R.Q", ml, qm, card, turns),
+             time_group_order("ml25m Rt.P", mlt, pm, card, turns)]
+    del ml, mlt, qm, pm
+    torch.cuda.empty_cache()
+    for tag, (nrows, ncols, rowptr, cols, vals, *_), widths in (
+            ("flagship", flagship(), (256, 8)),
+            ("MovieLens shape", movielens_shape(), (50, 256))):
+        m = CSR(nrows, ncols, len(cols), rowptr, cols, vals)
+        for width in widths:
+            b = torch.randn(ncols, width, device="cuda", generator=g)
+            rows.append(time_group_order(tag, m, b, card, turns))
+        del m, b
         torch.cuda.empty_cache()
     print(json.dumps({"netflix_spmm": rows}))
     return rows
+
+
+def generated(config, seed=1):
+    """The benchmark's matrix of ``config`` from its generator on the card,
+    and the generator's redraw rounds."""
+    from cardbench import generate
+    from csr_tpu_torch import CSR
+
+    trip = generate.ratings(generate.load_config(config), seed, "cuda")
+    m = CSR.from_coo(trip["rows"], trip["cols"], trip["vals"], shape=trip["shape"],
+                     device="cuda")
+    return m, trip["redraw_rounds"]
+
+
+def time_group_order(tag, m, b, card, turns):
+    """[24] The micro-block SpMM of ``m`` by ``b`` (see
+    :func:`phase_netflix`) in the packer's order and in the layout's
+    column order, in ``turns`` turns of the two, each held to the plain
+    version within NETFLIX_ERR_LIMIT of |A| |B|; asserts the route.
+    Returns the row."""
+    import dataclasses
+
+    from cardbench import roofline
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from csr_tpu_torch.ops import spmm as spmm_op
+
+    n = b.shape[1]
+    l2 = cuda_k._l2_bytes(b.device)
+    route = cuda_k._spmm_route(m, n)
+    t1 = time.perf_counter()
+    layout = cuda_k._cached_layout(m)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t1
+    groups = cuda_k.group_counts(layout)
+    packer = dataclasses.replace(layout, order=None)
+    ways = {"packer": lambda: spmm_op.spmm(packer, b),
+            "column": lambda: spmm_op.spmm(layout, b)}
+    ref = spmm_op.spmm_reference(layout, b)
+    scale = spmm_op.spmm_reference(dataclasses.replace(layout, vals=layout.vals.abs()),
+                                   b.abs())
+    errs = {way: gap_to(fn(), (ref, scale)) for way, fn in ways.items()}
+    del ref, scale
+    used = int((torch.bincount(m.colinds.long(), minlength=m.ncols) > 0).sum())
+    nbytes, flops = roofline.product_work(m.nnz, m.nrows, m.rowptrs.element_size(),
+                                          used, n, m.nrows)
+    least = roofline.least_ms(nbytes, flops, card)
+    kernel = {way: [] for way in ways}
+    call = {way: [] for way in ways}
+    for _ in range(turns):
+        for way, fn in ways.items():
+            whole, by_name = device_ms(fn, 5, by_kernel=True, floor_ms=least)
+            kernel[way].append(sum(t for k, t in by_name.items() if "spmm" in k.lower()))
+            call[way].append(whole)
+    row = dict(matrix=tag, n=n, route=route, pack_s=pack_s, **groups,
+               bytes_an_entry=layout.nbytes / m.nnz, b_bytes=b.numel() * 4,
+               c_bytes=m.nrows * n * 4, l2_bytes=l2,
+               b_past_l2=spmm_op.b_past_l2(m.ncols, n, l2), least_ms=least,
+               max_err=errs, kernel_ms=kernel, call_ms=call,
+               ratio=min(kernel["column"]) / min(kernel["packer"]),
+               gather_tbps={way: m.nnz * n * 4 / min(t) / 1e9 for way, t in kernel.items()})
+    print(f"[24] {tag}, n {n}: route {route}; layout built in {pack_s:.2f} s, "
+          f"{row['bytes_an_entry']:.2f} B an entry, {groups['windows']} row windows, "
+          f"{groups['groups']} groups, at most {groups['groups_max']} a window; B "
+          f"{row['b_bytes'] / 1e6:.1f} MB, C {row['c_bytes'] / 1e6:.1f} MB, L2 {l2} B: B "
+          f"past L2 {row['b_past_l2']}; bound {least:.5f} ms by bytes; card {card}")
+    for way in ways:
+        print(f"[24] {tag}, {way} order: kernel {' / '.join(f'{t:.5f}' for t in kernel[way])}"
+              f" ms, whole call {' / '.join(f'{t:.5f}' for t in call[way])} ms; gather "
+              f"{row['gather_tbps'][way]:.3f} TB/s; {least / min(kernel[way]):.3f} of the "
+              f"bound; gap to the plain version {errs[way]:.3g} of |A||B|")
+    print(f"[24] {tag}, n {n}: column order / packer's order {row['ratio']:.3f}")
+    assert route == "kernel", (tag, route)
+    assert max(errs.values()) <= NETFLIX_ERR_LIMIT, (tag, errs)
+    return row
+
+
+def spmm_occupancy():
+    """The micro-block SpMM's registers (the most of its three builds) and
+    blocks an SM, from ptxas's build log, asserting no spills and the
+    blocks the launch plan counts on: five blocks of 256 threads an SM, of
+    65,536 registers and 233,472 B of shared memory (1 KB more a block)."""
+    from csr_tpu_torch.ops import _cuda, spmm as spmm_op
+
+    log = _cuda.build_log["spmm_microblock"]
+    used = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    assert len(used) == len(spills) == 3, log
+    assert all(int(st) == int(ld) == 0 for st, ld in spills), spills
+    blocks = min(min(65536 // (int(r) * 256), 233472 // (int(sm) + 1024))
+                 for r, sm in used)
+    assert blocks * 132 >= spmm_op.BLOCKS_IN_FLIGHT, (used, blocks)
+    return max(int(r) for r, _ in used), blocks
 
 
 def stamp(tag, t0=time.perf_counter()):

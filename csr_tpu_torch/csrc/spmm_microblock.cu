@@ -15,7 +15,16 @@
 // never by the same block); the layout is 12 B an entry beside it and C
 // takes one add per row, column and group.  One FMA goes with every 4 B,
 // so the kernel lives on how many loads of B the card keeps in flight and
-// on how few instructions go with each.  What the design does about it:
+// on how few instructions go with each.  Which rows of B the blocks in
+// flight touch at once matters too: in the packer's order (row window after
+// row window) a window of many groups sweeps its groups over all of B's
+// rows, so where B passes L2 each window reads most of B again from device
+// memory, and those groups add into the same 128 rows of C.  So the blocks
+// take the groups in the layout's `order`, sorted by the column window of
+// their first micro-row (ops/microblock.py:group_order): the blocks in
+// flight come from every row window but share one narrow slab of B's rows,
+// which stays in L2, and their adds spread over C.  What the design does
+// about the gather:
 //   * a block takes one aligned group of 32 micro-rows (one rb: 128 output
 //     rows, at most 4064 entries) and regroups it once, in shared memory,
 //     into a CSR of the group: a count of entries a window row (summed over
@@ -51,7 +60,11 @@
 // 256-wide B and at 6.3 TB/s on 25M ratings times a 50-wide B, which is
 // L2's rate, not device memory's.  A block waits 3% to 13% of the kernel's
 // time for its regrouping; staging the next group behind the gathers was
-// not built.
+// not built.  The block's group is order[blockIdx.x], one 4 B load a block
+// (still 48 registers).  At the Netflix Prize's ratings times a 50-wide B,
+// Rt . P (B 96 MB, up to 282 groups a row window) gathers at 3.8 TB/s in
+// the packer's order and at 7.2 TB/s in column order, R . Q's rate with
+// its B in L2.
 // Results are not repeatable bit for bit in general: a row window whose
 // entries span several groups (more than 32 micro-rows) takes its groups'
 // atomic adds in an order that varies.  Within a group the order of sums is
@@ -228,12 +241,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 spmm_microblock_kernel(const float* __restrict__ vals,
                        const uint16_t* __restrict__ meta,
                        const int32_t* __restrict__ rbcb,
+                       const int32_t* __restrict__ order,
                        const float* __restrict__ b, float* __restrict__ c,
                        int shift, int nrows, int64_t n, unsigned ldb,
                        int64_t ldc, int vc, int n_tiles, int tiles_per_chunk) {
   constexpr int E = 32 / LANES;  // sub-warps, one entry each a step
   __shared__ Group g;
-  const int64_t mr0 = int64_t(blockIdx.x) * kAccGroup;
+  const int group = order ? __ldg(order + blockIdx.x) : int(blockIdx.x);
+  const int64_t mr0 = int64_t(group) * kAccGroup;
   regroup(g, vals + mr0 * kLane, meta + mr0 * kLane, rbcb + mr0, shift);
 
   const int lane = threadIdx.x & 31;
@@ -300,9 +315,9 @@ spmm_microblock_kernel(const float* __restrict__ vals,
 
 template <int LANES>
 int launch(const float* vals, const uint16_t* meta, const int32_t* rbcb,
-           const float* b, float* c, int64_t n_groups, int shift, int nrows,
-           int64_t n, int64_t ldb, int64_t ldc, int vc, int64_t per_chunk,
-           cudaStream_t stream) {
+           const int32_t* order, const float* b, float* c, int64_t n_groups,
+           int shift, int nrows, int64_t n, int64_t ldb, int64_t ldc, int vc,
+           int64_t per_chunk, cudaStream_t stream) {
   const int64_t tile = int64_t(LANES) * kVec;
   const int64_t n_tiles = (ldb + tile - 1) / tile;
   if (per_chunk < 1 || per_chunk > n_tiles || n_tiles > 0x7fffffff / kLane)
@@ -317,15 +332,18 @@ int launch(const float* vals, const uint16_t* meta, const int32_t* rbcb,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(n_groups), static_cast<unsigned>(chunks));
   spmm_microblock_kernel<LANES><<<grid, kThreads, 0, stream>>>(
-      vals, meta, rbcb, b, c, shift, nrows, n, static_cast<unsigned>(ldb), ldc,
-      vc, static_cast<int>(n_tiles), static_cast<int>(per_chunk));
+      vals, meta, rbcb, order, b, c, shift, nrows, n,
+      static_cast<unsigned>(ldb), ldc, vc, static_cast<int>(n_tiles),
+      static_cast<int>(per_chunk));
   return 0;
 }
 
 }  // namespace
 
-// C += A @ B over the first n_groups * 32 micro-rows of the layout.  B holds
-// ldb >= n floats a row, a multiple of 4, and is 16 B aligned; C holds
+// C += A @ B over the first n_groups * 32 micro-rows of the layout, block x
+// taking group order[x] where `order` (n_groups int32, a permutation of the
+// groups) is given, else group x.  B holds ldb >= n floats a row, a
+// multiple of 4, and is 16 B aligned; C holds
 // ldc >= n floats a row; both row-major, and only the first n columns of
 // either count.  All pointers are device pointers: vals 16 B aligned, meta
 // 8 B aligned, C zeroed by the caller.  shift is 7 for 128-wide windows, 8
@@ -335,7 +353,8 @@ int launch(const float* vals, const uint16_t* meta, const int32_t* rbcb,
 // a block; the tiles' count and the blocks a group follow from these here.
 // Launches on `stream` and returns the CUDA error code (0 on success).
 extern "C" int csrt_spmm_microblock(const void* vals, const void* meta,
-                                    const void* rbcb, const void* b, void* c,
+                                    const void* rbcb, const void* order,
+                                    const void* b, void* c,
                                     int64_t n_groups, int shift, int nrows,
                                     int64_t n, int64_t ldb, int64_t ldc,
                                     int lanes, int64_t tiles_per_chunk,
@@ -349,6 +368,7 @@ extern "C" int csrt_spmm_microblock(const void* vals, const void* meta,
     const auto* v = static_cast<const float*>(vals);
     const auto* m = static_cast<const uint16_t*>(meta);
     const auto* rc = static_cast<const int32_t*>(rbcb);
+    const auto* od = static_cast<const int32_t*>(order);
     const auto* bf = static_cast<const float*>(b);
     auto* cf = static_cast<float*>(c);
     auto* s = static_cast<cudaStream_t>(stream);
@@ -357,12 +377,12 @@ extern "C" int csrt_spmm_microblock(const void* vals, const void* meta,
                    : ldc % 2 == 0 && c_addr % 8 == 0 ? 2
                                                      : 1;
     const int rc_launch =
-        lanes == 32   ? launch<32>(v, m, rc, bf, cf, n_groups, shift, nrows, n,
-                                   ldb, ldc, vc, tiles_per_chunk, s)
-        : lanes == 16 ? launch<16>(v, m, rc, bf, cf, n_groups, shift, nrows, n,
-                                   ldb, ldc, vc, tiles_per_chunk, s)
-        : lanes == 8  ? launch<8>(v, m, rc, bf, cf, n_groups, shift, nrows, n,
-                                  ldb, ldc, vc, tiles_per_chunk, s)
+        lanes == 32   ? launch<32>(v, m, rc, od, bf, cf, n_groups, shift, nrows,
+                                   n, ldb, ldc, vc, tiles_per_chunk, s)
+        : lanes == 16 ? launch<16>(v, m, rc, od, bf, cf, n_groups, shift, nrows,
+                                   n, ldb, ldc, vc, tiles_per_chunk, s)
+        : lanes == 8  ? launch<8>(v, m, rc, od, bf, cf, n_groups, shift, nrows,
+                                  n, ldb, ldc, vc, tiles_per_chunk, s)
                       : static_cast<int>(cudaErrorInvalidValue);
     if (rc_launch != 0) return rc_launch;
   }

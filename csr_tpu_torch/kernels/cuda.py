@@ -61,8 +61,9 @@ any launch (and from the structure's micro-row count):
   (:func:`_spmm_route` says ``"csr"``), one call whatever the size, in
   column panels where :func:`spmm_panel_count` finds B larger than a slab of
   the card's L2 and the rows long (:func:`_spmm_panels`); the
-  rest runs the micro-block SpMM kernel, once a chunk and panel
-  (``ops/spmm.py:spmm_large``) past :func:`_needs_large`'s limit.  No
+  rest runs the micro-block SpMM kernel, its groups in the layout's
+  column order (``ops/microblock.py:group_order``), once a chunk and
+  panel (``ops/spmm.py:spmm_large``) past :func:`_needs_large`'s limit.  No
   f32 SpMM runs the ``torch`` backend;
 * SpGEMM densifies B (or B^T) within the budget of
   :mod:`csr_tpu_torch.ops.spgemm` and multiplies A by it as SpMM does;

@@ -39,10 +39,10 @@ _vp, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 ENTRIES = {
     # vals, meta, rbcb, x, y, n_groups, shift, nrows, stream
     "spmv_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _vp],
-    # vals, meta, rbcb, b, c, n_groups, shift, nrows, n, ldb, ldc, lanes,
-    # tiles_per_chunk, stream
-    "spmm_microblock": [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _i64,
-                        _i64, _i32, _i64, _vp],
+    # vals, meta, rbcb, order (or NULL), b, c, n_groups, shift, nrows, n, ldb,
+    # ldc, lanes, tiles_per_chunk, stream
+    "spmm_microblock": [_vp, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64,
+                        _i64, _i64, _i32, _i64, _vp],
     # vals, meta, rbcb, held, groups, n_layers, n_buckets, bucket_microrows,
     # x, x_stride, y, y_stride, grid, shift, nrows, stream
     "spmv_bucket": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _vp, _i64, _vp,

@@ -14,6 +14,9 @@ confined to one aligned 128-row window ``rb`` and one aligned 128- or
                               ``epos`` the number of the micro-row's
                               entries in window rows ``<= slot``
 ``rbcb``  (M,)     int32   -- ``rb << 16 | cb``
+``order`` (G,)     int32   -- the SpMM kernel's order of the ``G`` groups
+                              of ``ACC_GROUP`` micro-rows (:func:`group_order`;
+                              not the JAX package's: the port's alone)
 
 Every stripe (the micro-rows of one ``rb``) is padded to a multiple of
 ``ACC_GROUP`` micro-rows, so each aligned group of ``ACC_GROUP``
@@ -60,6 +63,9 @@ class MicroBlockLayout:
     rbcb: torch.Tensor  # (M,) i32
     window: int = LANE
     pair: int = 1
+    #: (n_microrows // ACC_GROUP,) i32, :func:`group_order`; None in a view
+    #: made by hand (a shard's, a bucket's), which SpMV alone reads
+    order: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -82,7 +88,8 @@ class MicroBlockLayout:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes held by the layout."""
+        """Device bytes held by the layout's three arrays, as the JAX
+        package counts them (the group order adds 4 B a group)."""
         return sum(t.numel() * t.element_size()
                    for t in (self.vals, self.meta, self.rbcb))
 
@@ -122,6 +129,29 @@ def check_on_card(layout: MicroBlockLayout) -> None:
     if layout.n_microrows % ACC_GROUP or layout.n_microrows > m_pad:
         raise ValueError(f"n_microrows {layout.n_microrows} is not a whole"
                          f" number of {ACC_GROUP}-micro-row groups <= {m_pad}")
+    if layout.order is not None:
+        _check("order", layout.order, torch.int32,
+               (layout.n_microrows // ACC_GROUP,), dev)
+
+
+def group_order(rbcb: np.ndarray, n_microrows: int) -> np.ndarray:
+    """The order in which the SpMM kernel's blocks take a layout's groups
+    of ``ACC_GROUP`` micro-rows: sorted by the column window of each
+    group's first micro-row (``rbcb[g * 32] & 0xffff``, always a real
+    micro-row), ties by row window, then stably.  Int32
+    ``(n_microrows // ACC_GROUP,)``.
+
+    In the packer's order (row window after row window) the blocks in
+    flight cover a few row windows, each sweeping its groups over all of
+    B's rows, so where B passes L2 every window reads most of B again
+    from device memory and its groups add into the same 128 rows of C.
+    In this order the blocks in flight come from every row window but
+    gather from one narrow slab of B, which stays in L2, and spread
+    their adds over C."""
+    first = np.asarray(rbcb[: n_microrows // ACC_GROUP * ACC_GROUP : ACC_GROUP],
+                       np.int64)
+    key = (first & 0xFFFF) << 16 | first >> 16
+    return np.argsort(key, kind="stable").astype(np.int32)
 
 
 def real_microrows(meta: np.ndarray, window: int) -> np.ndarray:
@@ -209,7 +239,8 @@ def in_range(nrows: int, ncols: int, window: int) -> bool:
 def layout_from_arrays(vals, meta, rbcb, nrows, ncols, nnz, n_microrows,
                        window, pair, device) -> MicroBlockLayout:
     """A layout from numpy arrays, for instance those of a
-    :class:`csr_tpu.ops.microblock.MicroBlockLayout`."""
+    :class:`csr_tpu.ops.microblock.MicroBlockLayout`, with its groups'
+    order (:func:`group_order`)."""
     def t(a, dtype):
         # writable and contiguous: torch will not alias read-only memory
         return torch.from_numpy(np.require(a, dtype, "CW")).to(device)
@@ -217,7 +248,7 @@ def layout_from_arrays(vals, meta, rbcb, nrows, ncols, nnz, n_microrows,
     return MicroBlockLayout(
         int(nrows), int(ncols), int(nnz), int(n_microrows),
         t(vals, np.float32), t(meta, np.uint16), t(rbcb, np.int32),
-        int(window), int(pair),
+        int(window), int(pair), t(group_order(rbcb, int(n_microrows)), np.int32),
     )
 
 

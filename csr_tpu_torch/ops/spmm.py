@@ -294,12 +294,13 @@ def _as_read(b: torch.Tensor) -> torch.Tensor:
 def spmm_launch(layout: MicroBlockLayout, like: torch.Tensor, l2_bytes: int = 0):
     """:func:`spmm`'s launch on the card for a B like ``like`` (its dtype,
     shape, strides and alignment; checked by :func:`spmm`), the layout's
-    side and the :func:`launch_plan` bound once: a function of B that
-    makes it contiguous f32, zeroes C, hands the kernel B's padded copy
-    where the plan says so (rows padded to a multiple of 4 floats, 16 B
-    aligned), takes the current stream and launches (counting
-    ``csr.spmm.b_past_l2`` where B's rows pass ``l2_bytes``).  A product
-    plan (``csr_tpu_torch/_plan.py``) keeps it for such a B."""
+    side (its groups in ``layout.order``, or in the packer's order in a
+    view with none) and the :func:`launch_plan` bound once: a function
+    of B that makes it contiguous f32, zeroes C, hands the kernel B's
+    padded copy where the plan says so (rows padded to a multiple of 4
+    floats, 16 B aligned), takes the current stream and launches
+    (counting ``csr.spmm.b_past_l2`` where B's rows pass ``l2_bytes``).
+    A product plan (``csr_tpu_torch/_plan.py``) keeps it for such a B."""
     from . import _cuda
 
     read = _as_read(like)
@@ -309,7 +310,8 @@ def spmm_launch(layout: MicroBlockLayout, like: torch.Tensor, l2_bytes: int = 0)
                        align=16 if read.data_ptr() % 16 == 0 else 4)
     dev, index, nrows, n = layout.device, layout.device.index, layout.nrows, plan.n
     kernel = _cuda.entry("spmm_microblock")
-    ptrs = (layout.vals.data_ptr(), layout.meta.data_ptr(), layout.rbcb.data_ptr())
+    ptrs = (layout.vals.data_ptr(), layout.meta.data_ptr(), layout.rbcb.data_ptr(),
+            None if layout.order is None else layout.order.data_ptr())
     mid = (layout.n_microrows // ACC_GROUP, layout.epos_shift, nrows, n)
     tail = (n, plan.lanes, plan.tiles_per_chunk)  # C's row stride, the plan
     pad = (0, plan.ldb - n) if plan.copy else None

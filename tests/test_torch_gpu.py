@@ -1195,3 +1195,43 @@ def test_spmm_hundreds_of_groups_a_window_b_past_l2_on_card(cuda_device):
         got = got.cpu().numpy().astype(np.float64)
         assert_product_close(got, ref)
         assert np.all(np.abs(got - ref) <= 1e-5 * scale)
+
+
+@pytest.mark.parametrize("n", [50, 8])
+def test_spmm_group_order_on_card(n, cuda_device):
+    """Four row windows over 60,000 columns, about 20 groups of 32
+    micro-rows each: the layout carries its groups' column order
+    (``ops/microblock.py:group_order``), and ``mult_dense`` (the general
+    path, then a plan's hit) and the kernel on the layout with and
+    without the order are each held to the float64 product at
+    ``tests/util.py``'s tolerances."""
+    import dataclasses
+
+    from csr_tpu_torch.kernels import cuda as cuda_k
+    from util import dense_tols
+
+    rng = np.random.default_rng(2201)
+    nrows, ncols, per_row = 512, 60_000, 600
+    rows = np.repeat(np.arange(nrows), per_row)
+    cols = rng.integers(0, ncols, rows.size)
+    vals = rng.uniform(-1, 1, rows.size).astype(np.float32)
+    a = sps.coo_matrix((vals, (rows, cols)), shape=(nrows, ncols)).tocsr()
+    a.sum_duplicates()
+    c = CSR.from_scipy(a, device=cuda_device)
+    b = rng.standard_normal((ncols, n)).astype(np.float32)
+    bd = torch.from_numpy(b).to(cuda_device)
+    with use_kernel("cuda"):
+        general = c.mult_dense(bd)
+        hit = c.mult_dense(bd)
+    layout = cuda_k._cached_layout(c)
+    groups = cuda_k.group_counts(layout)
+    assert groups["windows"] == 4 and groups["groups_max"] >= 16, groups
+    order = layout.order.cpu().numpy()
+    assert np.array_equal(order, mb.group_order(layout.rbcb.cpu().numpy(),
+                                                layout.n_microrows))
+    assert not np.array_equal(order, np.arange(order.size))
+    packer_order = dataclasses.replace(layout, order=None)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    tol = dense_tols(ref, np.float32)
+    for got in (general, hit, spmm.spmm(layout, bd), spmm.spmm(packer_order, bd)):
+        np.testing.assert_allclose(got.cpu().numpy(), ref, **tol)

@@ -375,27 +375,36 @@ def fake_entries(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("launch", ["spmv", "spmv_csr", "spmm-n50", "spmm-n52", "spmm_csr"])
+@pytest.mark.parametrize("launch", ["spmv", "spmv_csr", "spmm-n50", "spmm-n52", "spmm_csr",
+                                    "spmm-view"])
 def test_launches_pass_their_entries_arguments(launch, fake_entries):
     """Each wrapper's bound launch hands its kernel entry as many
     arguments as ``ops/_cuda.py:ENTRIES`` declares, of their types, with
     the matrix's side where ``ENTRIES`` puts it: its pointers (the CSR
-    form's row pointers, edges, columns and values), sizes and, for the
-    CSR-form SpMM, ``csr_plan``'s load width and lanes and no panels."""
+    form's row pointers, edges, columns and values), sizes, the
+    micro-block SpMM's group order (none in a view made without one)
+    and, for the CSR-form SpMM, ``csr_plan``'s load width and lanes and
+    no panels."""
     import ctypes
+    import dataclasses
 
     from csr_tpu_torch.ops import _cuda, microblock as mb, spmm, spmv
 
     c = _matrix()
-    n = {"spmm-n50": 50, "spmm-n52": 52}.get(launch, 3 if launch == "spmm_csr" else None)
+    n = {"spmm-n50": 50, "spmm-n52": 52, "spmm-view": 50}.get(
+        launch, 3 if launch == "spmm_csr" else None)
     v = _operand(c, "mult_dense" if n else "mult_vec", n)
     rp, ci, vs = c.rowptrs, c.colinds.to(torch.int32), c.values.float()
-    if launch in ("spmv", "spmm-n50", "spmm-n52"):
+    if launch in ("spmv", "spmm-n50", "spmm-n52", "spmm-view"):
         layout = mb.build_microblocks_host(c.nrows, c.ncols, *c.host_arrays(), device="cpu")
+        if launch == "spmm-view":
+            layout = dataclasses.replace(layout, order=None)
         run = (spmv.spmv_launch(layout, v) if launch == "spmv"
                else spmm.spmm_launch(layout, v))
         name = "spmv_microblock" if launch == "spmv" else "spmm_microblock"
         want = {0: layout.vals.data_ptr(), 1: layout.meta.data_ptr(), 2: layout.rbcb.data_ptr()}
+        if launch != "spmv":  # the groups' order, or none: the packer's
+            want[3] = None if layout.order is None else layout.order.data_ptr()
     else:  # rowptrs, ptr64, edges, search, colinds, values: both kernels
         tile = spmv.CSR_TILE if launch == "spmv_csr" else spmm.CSR_TILE
         edges = spmv.csr_shares(rp, c.nnz, tile)[0]
@@ -421,7 +430,7 @@ def test_launches_pass_their_entries_arguments(launch, fake_entries):
     assert {i: args[i] for i in want} == want
     assert args[-1] == 77 and out.dtype == torch.float32
     if launch.startswith("spmm-"):  # B's rows padded to a multiple of 4 floats
-        assert args[9] == 52
+        assert args[10] == 52
     if launch.endswith("_csr"):  # with no edges: room for them past the scratch
         bind = spmv.spmv_csr_launch if launch == "spmv_csr" else spmm.spmm_csr_launch
         bind(rp, ci, vs, None, v)(v)
